@@ -10,18 +10,25 @@ RCT, 64x64 codeblocks, one 4096x4096 tile), decoded by
 failure raises and the script exits non-zero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ffmpeg_ht_tpu_torch/csrc;
-  3. encode the three frames (natural value-noise, smooth, uniform random);
+  2. build the CUDA kernels from ffmpeg_ht_tpu_torch/csrc and the port's
+     native host tier from ffmpeg_ht_tpu_torch/native;
+  3. encode the three frames with the port's encoder (natural
+     value-noise, smooth, uniform random);
   4. each kernel against its plain PyTorch version on the card, on the
-     first frame's real lanes and planes, with times;
+     first frame's real lanes and planes: the HT cleanup's VLC pass
+     (records exact), its MagSgn pass (on the same records) and the pair
+     against ``cleanup_ref``, then RCT; each with its time by CUDA
+     events, its bound from the bytes these inputs need, and the share
+     of the bound;
   5. the main path: launch counts reset, three frames decoded, counts
      read; every frame must equal its source in the negotiated pixel
-     format (rgb48le, samples << 6), every kernel must have launched and
-     all frames must have gone through the v3 device program; then the
-     median ms per frame over a few repetitions.
+     format (rgb48le, samples << 6), every kernel must have launched once
+     per frame and all frames must have gone through the v3 device
+     program; then the median ms per frame over a few repetitions.
 
-The last two lines are a JSON object with the per-kernel numbers and
-``{"ok": true, "device": {...}}``. Needs no network and no JAX.
+The last lines are the card's name and power limit, a JSON object with
+the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
+network, no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -41,20 +48,24 @@ os.environ["CUDA_VISIBLE_DEVICES"] = \
 import numpy as np
 import torch
 
-from ffmpeg_ht_tpu.codestream.parser import parse_codestream
-from ffmpeg_ht_tpu.models import assembly as ASM
-from ffmpeg_ht_tpu.models import fastpath as FP
-from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k
+from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
+from ffmpeg_ht_tpu_torch.models import assembly as ASM
+from ffmpeg_ht_tpu_torch.models import fastpath as FP
 from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
 from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
-from ffmpeg_ht_tpu_torch.utils import build
+from ffmpeg_ht_tpu_torch.utils import build, native
 
 W, H, DEPTH = 4096, 2160, 10
 ENC = dict(depth=DEPTH, tile_width=4096, tile_height=4096,
            log2_cblk_width=6, log2_cblk_height=6, mct=True)
 REPS = 3
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published, at the 700 W limit
+# the earlier cleanup kernel, one thread per codeblock, on an H100 80GB
+# HBM3 at 700 W (PERF.md, section 6): printed beside the split design
+ONE_THREAD_CLEANUP_MS = 2.46
 
 
 def _natural(rng, h, w):
@@ -122,6 +133,10 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     print(f"phase 2 build: {kl.build_seconds:.1f} s -> {build.LIB_PATH}; "
           + " | ".join(ptxas))
+    t0 = time.perf_counter()
+    native.load()
+    print(f"phase 2 native tier loaded: {native.LIB_PATH} ("
+          f"{time.perf_counter() - t0:.1f} s, from {native.NATIVE_DIR})")
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(2024)
@@ -130,9 +145,10 @@ def main() -> int:
                "worst": _rgb(rng.integers(0, 1 << DEPTH, (H, W),
                                           dtype=np.uint16))}
     streams = {k: encode_frame_htj2k(v, **ENC) for k, v in sources.items()}
-    print(f"phase 3 encode: {len(streams)} frames {W}x{H} {DEPTH}-bit RGB "
-          f"5/3+RCT, {sum(map(len, streams.values())) / 3e6:.2f} MB/frame "
-          f"avg, {time.perf_counter() - t0:.1f} s")
+    print(f"phase 3 encode (port encoder): {len(streams)} frames {W}x{H} "
+          f"{DEPTH}-bit RGB 5/3+RCT, "
+          f"{sum(map(len, streams.values())) / 3e6:.2f} MB/frame avg, "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: kernels vs their plain versions on real lanes/planes
     t0 = time.perf_counter()
@@ -144,35 +160,94 @@ def main() -> int:
     prep_ms = (time.perf_counter() - t0) * 1e3
     args = {k: to_torch(v, dev) for k, v in args_np.items()}
     qw, qh = plan.bw // 2, plan.bh // 2
-    mb = int(fc["maxbp"][fc["qws"] > 0].max())
+    dev_lanes = fc["qws"] > 0
+    mb = int(fc["maxbp"][dev_lanes].max())
     msc = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-    names = ("msw", "melw", "vlcw", "pLSB", "maxbp", "ms_lim", "mel_lim",
-             "qws", "qhs")
-    lane_args = [args[k] for k in names]
-    N = lane_args[0].shape[0]
-    mu_k, sig_k, ok_k = ht_scan.decode_cleanup_scan_dims(
-        *lane_args, qw, qh, msc)
+    (msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs) = (
+        args[k] for k in ("msw", "melw", "vlcw", "pLSB", "maxbp", "ms_lim",
+                          "mel_lim", "qws", "qhs"))
+    N = msw.shape[0]
+    vlc_in = (melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
+
+    rec_k = ht_scan.ht_vlc_pass(*vlc_in)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec_r = ht_scan.vlc_pass_ref(*vlc_in)
+    torch.cuda.synchronize()
+    vlc_plain_ms = (time.perf_counter() - t1) * 1e3
+    vlc_err = int((rec_k.to(torch.int64) - rec_r.to(torch.int64))
+                  .abs().max())
+    if vlc_err:
+        raise RuntimeError(f"VLC pass differs from vlc_pass_ref (max abs "
+                           f"err {vlc_err})")
+
+    ms_in = (msw, pLSB, maxbp, ms_lim, qws, qhs, qw, qh, msc)
+    mu_k, sig_k, ok_k = ht_scan.ht_magsgn_pass(rec_r, *ms_in)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mu_r, sig_r, ok_r = ht_scan.magsgn_pass_ref(rec_r, *ms_in)
+    torch.cuda.synchronize()
+    magsgn_plain_ms = (time.perf_counter() - t1) * 1e3
+    if not torch.equal(ok_k, ok_r) or not bool(ok_r.all()):
+        raise RuntimeError("MagSgn pass: ok flags differ from "
+                           "magsgn_pass_ref or a lane failed")
+    magsgn_err = max(int((u32(mu_k) - u32(mu_r)).abs().max()),
+                     int((sig_k - sig_r).abs().max()))
+    if magsgn_err:
+        raise RuntimeError(f"MagSgn pass differs from magsgn_pass_ref "
+                           f"(max abs err {magsgn_err})")
+
+    lane_args = (msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs)
+    mu_k, sig_k, ok_k = ht_scan.decode_cleanup_scan_dims(*lane_args, qw, qh,
+                                                         msc)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     mu_r, sig_r, ok_r = ht_scan.cleanup_ref(*lane_args, qw, qh, msc)
     torch.cuda.synchronize()
     cleanup_plain_ms = (time.perf_counter() - t1) * 1e3
     if not torch.equal(ok_k, ok_r) or not bool(ok_r.all()):
-        raise RuntimeError("cleanup kernel: ok flags differ from cleanup_ref"
+        raise RuntimeError("cleanup pair: ok flags differ from cleanup_ref"
                            " or a lane failed")
-    u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
     cleanup_err = max(int((u32(mu_k) - u32(mu_r)).abs().max()),
                       int((sig_k - sig_r).abs().max()))
     if cleanup_err:
-        raise RuntimeError(f"cleanup kernel differs from cleanup_ref "
+        raise RuntimeError(f"cleanup pair differs from cleanup_ref "
                            f"(max abs err {cleanup_err})")
+
+    vlc_ms = _cuda_ms(lambda: ht_scan.ht_vlc_pass(*vlc_in), 10)
+    magsgn_ms = _cuda_ms(lambda: ht_scan.ht_magsgn_pass(rec_r, *ms_in), 10)
     cleanup_ms = _cuda_ms(lambda: ht_scan.decode_cleanup_scan_dims(
         *lane_args, qw, qh, msc), 10)
-    print(f"phase 4 cleanup kernel == cleanup_ref on {N} lanes "
-          f"(qw=qh={qw}, ms_class={msc}, W ms/mel/vlc = "
-          f"{args['msw'].shape[1]}/{args['melw'].shape[1]}/"
-          f"{args['vlcw'].shape[1]}): kernel {cleanup_ms:.3f} ms, plain "
-          f"{cleanup_plain_ms:.1f} ms; host prep {prep_ms:.0f} ms")
+    # bytes these inputs need: the segment bytes of the decoded lanes
+    # (MagSgn: [0, pcup); MEL and VLC: [pcup, lcup)), the per-lane
+    # vectors, the records, and mu + sig + ok
+    lc = fc["lcups"][dev_lanes].astype(np.int64)
+    pc = fc["pcups"][dev_lanes].astype(np.int64)
+    ms_bytes, melvlc_bytes = int(pc.sum()), int((lc - pc).sum())
+    rec_bytes = 4 * N * qh * qw
+    out_bytes = 4 * mu_k.numel() + 4 * sig_k.numel() + N
+    bound = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3
+    vlc_bound = bound(melvlc_bytes + 12 * N + 8192 + rec_bytes)
+    magsgn_bound = bound(rec_bytes + ms_bytes + 20 * N + out_bytes)
+    cleanup_bound = bound(ms_bytes + melvlc_bytes + 32 * N + 8192
+                          + out_bytes)
+    print(f"phase 4 HT cleanup on {N} lanes (qw=qh={qw}, ms_class={msc}, "
+          f"W ms/mel/vlc = {msw.shape[1]}/{melw.shape[1]}/{vlcw.shape[1]}"
+          f"; segment bytes MagSgn {ms_bytes}, MEL+VLC {melvlc_bytes}; "
+          f"host prep {prep_ms:.0f} ms)")
+    for name, ms, plain, bnd in (
+            ("VLC pass == vlc_pass_ref (records)", vlc_ms, vlc_plain_ms,
+             vlc_bound),
+            ("MagSgn pass == magsgn_pass_ref (same records)", magsgn_ms,
+             magsgn_plain_ms, magsgn_bound),
+            ("pair == cleanup_ref", cleanup_ms, cleanup_plain_ms,
+             cleanup_bound)):
+        print(f"phase 4   {name}: kernel {ms:.4f} ms, plain {plain:.1f} ms"
+              f", bound {bnd:.4f} ms (bytes), {100 * bnd / ms:.1f}% of "
+              "bound")
+    print(f"phase 4   pair {cleanup_ms:.4f} ms vs {ONE_THREAD_CLEANUP_MS} ms "
+          "for the earlier one-thread-per-codeblock kernel")
 
     prog = V3Program(plan, fg.geom.key(), qw=qw, qh=qh, ms_class=msc,
                      n_pad=fg.ncblks, frames=1,
@@ -201,20 +276,24 @@ def main() -> int:
     rct_ms = _cuda_ms(lambda: mct_cuda.rct_writeframe(
         y0, y1, y2, DEPTH, out=packed_k), 20)
     rct_plain_ms = _cuda_ms(rct_plain, 20)
+    rct_bound = bound(3 * npx * 4 + packed_k.numel() * 2)
     program_ms = _cuda_ms(lambda: prog(**args), 5)
     print(f"phase 4 rct kernel == rct_writeframe_ref + pack on 3 x {H}x{W} "
           f"planes (min {int(y1.min())}, max {int(y1.max())} chroma): "
-          f"kernel {rct_ms:.3f} ms, plain {rct_plain_ms:.3f} ms; whole "
-          f"device program {program_ms:.2f} ms/frame")
-    del outs, y0, y1, y2, ref, got, mu_r, sig_r, mu_k, sig_k
+          f"kernel {rct_ms:.4f} ms, plain {rct_plain_ms:.3f} ms, bound "
+          f"{rct_bound:.4f} ms (bytes), {100 * rct_bound / rct_ms:.1f}% of "
+          f"bound; whole device program {program_ms:.2f} ms/frame")
+    del outs, y0, y1, y2, ref, got, mu_r, sig_r, mu_k, sig_k, rec_k, rec_r
 
     # ---- phase 5: the main path through the public entry point
     dec = Decoder(device="cuda")
     order = list(streams)
-    ht_scan.decode_cleanup_scan_dims.launches = 0
+    ht_scan.ht_vlc_pass.launches = 0
+    ht_scan.ht_magsgn_pass.launches = 0
     mct_cuda.rct_writeframe.launches = 0
     frames = list(dec.decode_stream([streams[k] for k in order]))
-    launches = {"ht_cleanup": ht_scan.decode_cleanup_scan_dims.launches,
+    launches = {"ht_vlc_pass": ht_scan.ht_vlc_pass.launches,
+                "ht_magsgn_pass": ht_scan.ht_magsgn_pass.launches,
                 "rct_writeframe": mct_cuda.rct_writeframe.launches}
     for k, fr in zip(order, frames):
         want = sources[k].astype(np.uint16) << (16 - DEPTH)
@@ -225,8 +304,9 @@ def main() -> int:
     if dec.v3_frames != len(order) or dec.host_frames:
         raise RuntimeError(f"v3 frames {dec.v3_frames}, host frames "
                            f"{dec.host_frames}")
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"a kernel was not launched: {launches}")
+    if any(n != len(order) for n in launches.values()):
+        raise RuntimeError(f"launches {launches}, expected one per frame "
+                           f"({len(order)})")
     times = []
     for _ in range(REPS):
         torch.cuda.synchronize()
@@ -272,18 +352,28 @@ def main() -> int:
         + f" | total {total:.1f}; device program "
         f"{100 * laps['device_program'] / total:.1f}% of it")
 
+    cleanup_src = "ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192"
     kernels = [
-        dict(name="ht_cleanup", route="cuda",
-             source="ffmpeg_ht_tpu_torch/csrc/ht_cleanup.cu",
-             replaces="ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192",
-             launches=launches["ht_cleanup"], max_abs_err=cleanup_err,
-             ms=round(cleanup_ms, 4), plain_ms=round(cleanup_plain_ms, 2)),
+        dict(name="ht_vlc_pass", route="cuda",
+             source="ffmpeg_ht_tpu_torch/csrc/ht_vlc_pass.cu",
+             replaces=cleanup_src, max_abs_err=vlc_err, ms=vlc_ms,
+             plain_ms=vlc_plain_ms, bound_ms=vlc_bound),
+        dict(name="ht_magsgn_pass", route="cuda",
+             source="ffmpeg_ht_tpu_torch/csrc/ht_magsgn_pass.cu",
+             replaces=cleanup_src, max_abs_err=magsgn_err, ms=magsgn_ms,
+             plain_ms=magsgn_plain_ms, bound_ms=magsgn_bound),
         dict(name="rct_writeframe", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/rct_writeframe.cu",
              replaces="ffmpeg_ht_tpu/ops/mct_pallas.py:36",
-             launches=launches["rct_writeframe"], max_abs_err=rct_err,
-             ms=round(rct_ms, 4), plain_ms=round(rct_plain_ms, 4)),
+             max_abs_err=rct_err, ms=rct_ms, plain_ms=rct_plain_ms,
+             bound_ms=rct_bound),
     ]
+    for k in kernels:
+        # no single PyTorch call computes an HT cleanup pass, nor RCT with
+        # DC shift, clip and the narrow pack
+        k.update(launches=launches[k["name"]],
+                 launches_per_frame=launches[k["name"]] / len(order),
+                 bound_by="bytes", library_ms=None)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

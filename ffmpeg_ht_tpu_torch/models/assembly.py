@@ -8,30 +8,189 @@ Per call, for F frames of one geometry:
   3. the sparse prefill scatter of host-decoded lanes, into a flat buffer
      with one trailing trash slot that the pad entries address;
   4. the band mosaics: slice/reshape/permute/cat of the lane rasters
-     (``AssemblyPlan`` from ``ffmpeg_ht_tpu.models.assembly.build_plan``);
+     (``AssemblyPlan`` from ``build_plan`` below);
   5. the band-direct inverse 5/3 DWT (ops/dwt_torch);
   6. RCT + DC shift + clip written straight into the packed output
      (ops/mct_cuda), or DC shift + clip for planes without MCT;
   7. one packed uint8 / uint16 buffer (uint16 held as int16 bits) whose
      last element is the all-lanes ok flag.
 
-The assembly plan and geometry key are the JAX package's own (numpy).
-Only the reversible 5/3 band-direct case is ported; the others raise
-NotImplementedError naming their ROADMAP.md item.
+The assembly plan (``PrecPlan`` .. ``AssemblyPlan``, ``build_plan``) is
+copied verbatim from the reference module: numpy only, static per
+codestream geometry. Only the reversible 5/3 band-direct case is
+ported; the others raise NotImplementedError naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
-from ffmpeg_ht_tpu.codestream import markers as mk
-from ffmpeg_ht_tpu.models.assembly import AssemblyPlan, BandPlan
+from ffmpeg_ht_tpu_torch.codestream import markers as mk
 from ffmpeg_ht_tpu_torch.ops.dwt_torch import (dwt_decode_bands,
                                                dwt_poly_capable)
 from ffmpeg_ht_tpu_torch.ops.ht_scan import decode_cleanup_scan_dims
 from ffmpeg_ht_tpu_torch.ops.mct_cuda import narrow, rct_writeframe
+
+
+@dataclass(frozen=True)
+class PrecPlan:
+    l0: int          # absolute first lane (geometry ordinal)
+    ch: int          # codeblock grid rows
+    cw: int          # codeblock grid cols
+    blk_h: int       # full block dims (last row/col may be smaller)
+    blk_w: int
+    ph: int          # precinct pixel dims
+    pw: int
+    x0: int          # position in the plane (quadrant coords)
+    y0: int
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    rows: Tuple[Tuple[PrecPlan, ...], ...]   # precinct mosaic, row-major
+    bh: int
+    bw: int
+
+
+@dataclass(frozen=True)
+class PlanePlan:
+    plane_idx: int
+    ph: int
+    pw: int
+    ndec: int
+    levels: Tuple                 # (ll, ((hl, lh, hh), ...)) BandPlans
+
+
+@dataclass(frozen=True)
+class AssemblyPlan:
+    planes: Tuple[PlanePlan, ...]
+    n_lanes: int
+    bh: int                       # bucket raster dims (2*qh, 2*qw)
+    bw: int
+
+
+def build_plan(fg) -> Optional[AssemblyPlan]:
+    """Static assembly plan from a FlatGeometry, or None if any precinct
+    grid is irregular (unaligned band origin — v2 fallback)."""
+    w = fg.w
+    h = fg.h
+    dest = fg.dest
+    stride = fg.stride
+    planes = fg.geom.planes
+
+    # group precincts per (plane, rl, band)
+    bands = {}
+    for (l0, ch, cw, pidx, tileno, compno, rlno, bandno) in fg.prec_list:
+        n = ch * cw
+        if n == 0:
+            continue
+        colw = [int(w[l0 + j]) for j in range(cw)]
+        rowh = [int(h[l0 + i * cw]) for i in range(ch)]
+        # rectangular grid with uniform interior
+        for i in range(ch):
+            for j in range(cw):
+                if int(w[l0 + i * cw + j]) != colw[j] \
+                        or int(h[l0 + i * cw + j]) != rowh[i]:
+                    return None
+        if any(cv != colw[0] for cv in colw[:-1]) \
+                or any(rv != rowh[0] for rv in rowh[:-1]):
+            return None
+        if colw[-1] > colw[0] or rowh[-1] > rowh[0]:
+            return None
+        poff, _, pstride = planes[pidx]
+        rel = int(dest[l0]) - poff
+        if int(stride[l0]) != pstride:
+            return None
+        y0, x0 = rel // pstride, rel % pstride
+        # every cblk's dest must match its grid slot
+        for i in range(ch):
+            for j in range(cw):
+                ex = x0 + sum(colw[:j])
+                ey = y0 + sum(rowh[:i])
+                if int(dest[l0 + i * cw + j]) - poff \
+                        != ey * pstride + ex:
+                    return None
+        pp = PrecPlan(l0=int(l0), ch=ch, cw=cw, blk_h=rowh[0],
+                      blk_w=colw[0], ph=sum(rowh), pw=sum(colw),
+                      x0=x0, y0=y0)
+        bands.setdefault((pidx, rlno, bandno), []).append(pp)
+
+    def band_plan(key, exp_w, exp_h, exp_x0, exp_y0) -> Optional[BandPlan]:
+        pps = bands.get(key, [])
+        if not pps:
+            if exp_w == 0 or exp_h == 0:
+                return BandPlan(rows=(), bh=exp_h, bw=exp_w)
+            return None
+        rows = {}
+        for pp in pps:
+            rows.setdefault(pp.y0, []).append(pp)
+        out_rows = []
+        ys = sorted(rows.keys())
+        cy = exp_y0
+        for y in ys:
+            row = sorted(rows[y], key=lambda p: p.x0)
+            if y != cy:
+                return None
+            cx = exp_x0
+            ph = row[0].ph
+            for pp in row:
+                if pp.x0 != cx or pp.ph != ph:
+                    return None
+                cx += pp.pw
+            if cx - exp_x0 != exp_w:
+                return None
+            cy += ph
+            out_rows.append(tuple(row))
+        if cy - exp_y0 != exp_h:
+            return None
+        return BandPlan(rows=tuple(out_rows), bh=exp_h, bw=exp_w)
+
+    def cdp2(v, k):
+        return -((-v) >> k)
+
+    plane_plans = []
+    for pidx, (poff, ph, pw) in enumerate(planes):
+        ndec = fg.geom.ndecs[pidx]
+        border = fg.geom.borders[pidx]
+        (x0b, x1b), (y0b, y1b) = border
+
+        def lvl_dims(r, ndec=ndec, x0b=x0b, x1b=x1b, y0b=y0b, y1b=y1b):
+            """Reslevel-r plane dims (r = ndec is the full plane)."""
+            s = ndec - r
+            return (cdp2(x1b, s) - cdp2(x0b, s),
+                    cdp2(y1b, s) - cdp2(y0b, s))
+
+        llw, llh = lvl_dims(0)
+        ll = band_plan((pidx, 0, 0), llw, llh, 0, 0)
+        if ll is None:
+            return None
+        lvls = []
+        cw_, ch_ = llw, llh
+        for r in range(1, ndec + 1):
+            lw, lh = lvl_dims(r)
+            hlw, hlh = lw - cw_, ch_
+            lhw, lhh = cw_, lh - ch_
+            hhw, hhh = lw - cw_, lh - ch_
+            hl = band_plan((pidx, r, 0), hlw, hlh, cw_, 0)
+            lhb = band_plan((pidx, r, 1), lhw, lhh, 0, ch_)
+            hh = band_plan((pidx, r, 2), hhw, hhh, cw_, ch_)
+            if hl is None or lhb is None or hh is None:
+                return None
+            lvls.append((hl, lhb, hh))
+            cw_, ch_ = lw, lh
+        if (cw_, ch_) != (pw, ph):
+            return None
+        plane_plans.append(PlanePlan(plane_idx=pidx, ph=ph, pw=pw,
+                                     ndec=ndec, levels=(ll, tuple(lvls))))
+
+    bw = 2 * (-(-int(fg.w.max()) // 2)) if fg.ncblks else 2
+    bh = 2 * (-(-int(fg.h.max()) // 2)) if fg.ncblks else 2
+    return AssemblyPlan(planes=tuple(plane_plans), n_lanes=fg.ncblks,
+                        bh=bh, bw=bw)
 
 
 def _mosaic_band(ras, bp: BandPlan, lane_off: int):

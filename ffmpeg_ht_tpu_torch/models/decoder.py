@@ -1,11 +1,11 @@
 """HTJ2K decoder on a torch device (counterpart of
 ``ffmpeg_ht_tpu.models.decoder.Decoder``).
 
-The host tier is the JAX package's: codestream parse, the flat fast lane
-(native T2 parse, lane building, assembly plan), the host oracle and the
-frame writer. The device program is ``models/assembly.V3Program``: the
-v3 fused fast lane of the reference package, for HTONLY streams with the
-reversible 5/3 transform.
+The host tier is the port's own copy of the reference's: codestream
+parse, the flat fast lane (native T2 parse, lane building, assembly
+plan), the host oracle and the frame writer. The device program is
+``models/assembly.V3Program``: the v3 fused fast lane of the reference
+package, for HTONLY streams with the reversible 5/3 transform.
 
 Routing follows the reference ``Decoder.decode``:
 
@@ -22,28 +22,62 @@ Routing follows the reference ``Decoder.decode``:
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
 
-from ffmpeg_ht_tpu.codestream.geometry import init_tile
-from ffmpeg_ht_tpu.codestream.parser import parse_codestream
-from ffmpeg_ht_tpu.codestream.t2 import decode_tile_packets
-from ffmpeg_ht_tpu.models import assembly as ASM
-from ffmpeg_ht_tpu.models import fastpath as FP
-from ffmpeg_ht_tpu.models import host_decoder
-from ffmpeg_ht_tpu.models import pixfmt as pf
-from ffmpeg_ht_tpu.models.decoder import (_supported_on_device,
-                                          _write_frame_prescaled)
-from ffmpeg_ht_tpu.models.host_decoder import DecodedFrame
-from ffmpeg_ht_tpu.utils.errors import InvalidData
+from ffmpeg_ht_tpu_torch.codestream import markers as mk
+from ffmpeg_ht_tpu_torch.codestream.geometry import Tile, ceildiv, init_tile
+from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
+from ffmpeg_ht_tpu_torch.codestream.t2 import decode_tile_packets
+from ffmpeg_ht_tpu_torch.models import assembly as ASM
+from ffmpeg_ht_tpu_torch.models import fastpath as FP
+from ffmpeg_ht_tpu_torch.models import host_decoder
+from ffmpeg_ht_tpu_torch.models import pixfmt as pf
 from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
+from ffmpeg_ht_tpu_torch.models.host_decoder import DecodedFrame
 from ffmpeg_ht_tpu_torch.utils.device import resolve_device
+from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
 _V2_PATH = ("the stream needs the v2 bucketed device path (refinement "
             "passes, unaligned band origins or a non-native parse), not "
-            "ported yet: ROADMAP.md module 8")
+            "ported yet: ROADMAP.md, the v2 path with ht_refine")
 _MAX_GEOMS = 32
+_DEVICE_TRANSFORMS = (mk.DWT53, mk.DWT97_INT, mk.DWT97)
+
+
+def _supported_on_device(hdr, tiles: List[Tile]) -> bool:
+    """Device path covers HTONLY streams without ROI; all three transforms
+    (5/3 reversible, bitexact integer 9/7, float 9/7), uniform across the
+    frame's tile-components (one flat-buffer dtype per launch)."""
+    transform = tiles[0].codsty[0].transform if tiles else mk.DWT53
+    for tile in tiles:
+        for compno, comp in enumerate(tile.comp):
+            codsty = tile.codsty[compno]
+            if codsty.transform not in _DEVICE_TRANSFORMS \
+                    or codsty.transform != transform:
+                return False
+            if comp.roi_shift:
+                return False
+            qntsty = tile.qntsty[compno]
+            for sb in range(codsty.nreslevels2decode * 3 - 2):
+                if qntsty.expn[sb] + qntsty.nguardbits - 1 >= 31:
+                    return False  # host raises PatchWelcome (HT M_b >= 31)
+            if not (codsty.cblk_style & mk.CTSY_HTJ2K_F):
+                return False
+            if (codsty.log2_cblk_width > 6 or codsty.log2_cblk_height > 6):
+                return False  # kernel raster capacity is 64x64
+            for rl in comp.reslevel:
+                for band in rl.band:
+                    for prec in band.prec:
+                        for cblk in prec.cblk:
+                            if cblk.npasses == 0:
+                                continue
+                            if not (cblk.modes & mk.CTSY_HTJ2K_F):
+                                return False
+    return True
 
 
 class Decoder:
@@ -144,7 +178,7 @@ class Decoder:
         if mb > 25:
             raise NotImplementedError(
                 "codeblocks with maxbp > 25 need the v2 path, not ported "
-                "yet: ROADMAP.md module 8")
+                "yet: ROADMAP.md, the v2 path with ht_refine")
         ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
         args, F = finish_v3_numpy(fg, frames, fg.geom.total)
         # lossless frames: istep is uniformly the identity 32768
@@ -208,3 +242,26 @@ class Decoder:
             _write_frame_prescaled(hdr, tile, comp_planes, fmt, planes,
                                    precision, cdef)
         return DecodedFrame(fmt=fmt, width=dimx, height=dimy, planes=planes)
+
+
+def _write_frame_prescaled(hdr, tile, comp_planes, fmt, planes, precision,
+                           cdef):
+    """write_frame for device output (already DC-shifted and clipped)."""
+    siz = hdr.siz
+    for compno, comp in enumerate(tile.comp):
+        cbps = siz.components[compno].depth
+        cdx = siz.components[compno].dx
+        cdy = siz.components[compno].dy
+        vals = comp_planes[compno] << (precision - cbps)
+        x0 = comp.coord[0][0] - ceildiv(siz.x0, cdx)
+        y0 = comp.coord[1][0] - ceildiv(siz.y0, cdy)
+        w = comp.coord[0][1] - ceildiv(siz.x0, cdx)
+        h = comp.coord[1][1] - ceildiv(siz.y0, cdy)
+        if fmt.planar:
+            plane_idx = (cdef[compno] - 1) if cdef[compno] \
+                else fmt.nb_components - 1
+            planes[plane_idx][y0:h, x0:w] = vals
+        else:
+            nc = fmt.nb_components
+            planes[0][y0:h, x0 * nc + compno:w * nc:nc] = vals[:, :w - x0]
+

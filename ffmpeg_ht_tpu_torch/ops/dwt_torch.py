@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ffmpeg_ht_tpu.ops.dwt import DWT53, dwt_levels
+from ffmpeg_ht_tpu_torch.ops.dwt import DWT53, dwt_levels
 
 
 def _mcat(A, lo: int, hi: int, vlo: int, vhi: int, mlo, mhi, axis: int):

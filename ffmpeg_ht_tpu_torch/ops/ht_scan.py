@@ -4,8 +4,8 @@ Contract of ``ffmpeg_ht_tpu.ops.ht_scan.decode_cleanup_scan_dims`` (and of
 the Pallas kernel ``ht_scan_pallas.decode_cleanup_pallas`` that shares it):
 
   inputs  msw / melw / vlcw  (N, W_*) dense bit streams built on the host
-          by ``ffmpeg_ht_tpu.ops.ht_batch.prepare_streams_with_limits``
-          (uint32 words, held here as int32 bit patterns);
+          by ``ops/ht_batch.prepare_streams_with_limits`` (uint32 words,
+          held here as int32 bit patterns);
           pLSB, maxbp, ms_lim, mel_lim, qws, qhs  int32 (N,);
           static qw, qh <= 32 (the lane raster is (2qh, 2qw)) and
           ms_class, a bound on every decoded lane's maxbp.
@@ -21,11 +21,32 @@ reference's end-of-segment rule: a word index ``>= lim`` reads all ones
 (the 0xFF synthesis, jpeg2000htdec.c:207-221) and any other index past
 the stored words reads zero; the VLC stream has no limit.
 
-``cleanup_ref`` is the plain PyTorch formulation: all lanes advance in
-lockstep through the quad pairs with real ``torch.gather`` word fetches
-and direct table indexing. ``decode_cleanup_scan_dims`` runs it for CPU
-tensors and launches the CUDA kernel ``csrc/ht_cleanup.cu`` (one thread
-per lane) for CUDA tensors.
+The pass is split in two where T.814 allows it: MEL and VLC decoding of
+quad row r needs only the significance of row r - 1, and only U needs
+the exponents of the row above, which come from MagSgn. So
+
+1. the VLC pass (``ht_vlc_pass``) decodes MEL, CxtVLC and the U-VLC
+   pairs of a whole codeblock and writes one record per quad into an
+   (N, qh, qw) int32 tensor::
+
+       bits  0-3   sp   significance pattern (corner i = bit i)
+       bits  4-7   ek   e_k: corners whose MagSgn count is one less
+       bits  8-11  e1   e_1: corners with an implicit leading one
+       bits 12-18  u    U-VLC value, <= 98; on the initial row the MEL
+                        bonus and the ``p0 > 2`` case are folded in
+
+   Quads outside the lane's (qws, qhs) hold 0.
+2. the MagSgn pass (``ht_magsgn_pass``) turns the records into
+   (mu, sig, ok): U from the row above's exponents (``1 + u`` on row 0,
+   ``max(1, gamma(sp) * (kmax - 1)) + u`` below it), the sample counts
+   ``m_i = min(sp_i * U - ek_i, min(ms_class, 25))``, and the samples
+   read from the MagSgn stream, quad after quad along the row, corners
+   0..3 of a quad in order. Corner i sits at (dy, dx) = (i & 1, i >> 1).
+
+``vlc_pass_ref`` and ``magsgn_pass_ref`` are the plain PyTorch versions
+and ``cleanup_ref`` their composition. The wrappers take the plain
+version for CPU tensors and launch the CUDA kernels
+``csrc/ht_vlc_pass.cu`` and ``csrc/ht_magsgn_pass.cu`` for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -33,7 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ffmpeg_ht_tpu.ops import tables as tb
+from ffmpeg_ht_tpu_torch.ops import tables as tb
 from ffmpeg_ht_tpu_torch.utils import build
 from ffmpeg_ht_tpu_torch.utils.device import check_tensor
 
@@ -104,18 +125,18 @@ def _gamma(sp):
     return (pc > 1).to(_I64)
 
 
-def cleanup_ref(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
-                qw: int, qh: int, ms_class: int):
-    """Plain PyTorch cleanup decode; see the module docstring."""
-    dev = msw.device
-    N = msw.shape[0]
+_REC_U_SHIFT = 12
+
+
+def vlc_pass_ref(melw, vlcw, mel_lim, qws, qhs, qw: int, qh: int):
+    """Plain PyTorch VLC pass: (N, qh, qw) int32 quad records (see the
+    module docstring). All lanes advance in lockstep through the quad
+    pairs with ``torch.gather`` word fetches and direct table indexing."""
+    dev = melw.device
+    N = melw.shape[0]
     T = _Tables(dev)
-    clamp = min(int(ms_class), 25)
-    ms, mel, vlc = _Stream(msw, ms_lim), _Stream(melw, mel_lim), \
-        _Stream(vlcw, None)
+    mel, vlc = _Stream(melw, mel_lim), _Stream(vlcw, None)
     qws, qhs = qws.to(_I64), qhs.to(_I64)
-    pLSB = pLSB.to(_I64)[:, None]
-    maxbp = maxbp.to(_I64)
     zero = torch.zeros(N, dtype=_I64, device=dev)
     mel_k, mel_run, mel_one = zero.clone(), zero.clone(), zero.clone()
 
@@ -173,7 +194,8 @@ def cleanup_ref(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
                 off + torch.where(has, 4, 0))
 
     def u_pair(initial, r1, r2, a1, a2):
-        """U-VLC pair decode (jpeg2000htdec.c:338-388, 666-712, 828-854)."""
+        """U-VLC pair decode (jpeg2000htdec.c:338-388, 666-712, 828-854);
+        on the initial row the MEL bonus is folded into u."""
         both = a1 & a2 & (r1 == 1) & (r2 == 1)
         only1 = a1 & (r1 == 1) & ~(a2 & (r2 == 1))
         only2 = a2 & (r2 == 1) & (r1 == 0)
@@ -209,48 +231,22 @@ def cleanup_ref(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
             u2 = torch.where(both, ub, torch.where(only2, ua, 0))
         return u1, u2
 
-    corner = torch.arange(4, device=dev).repeat(2)[None, :]
+    def record(q, u):
+        return q[1] | (q[2] << 4) | (q[3] << 8) | (u << _REC_U_SHIFT)
 
-    def recover(U1, U2, q1, q2, a1, a2):
-        """MagSgn recovery for the pair's 8 samples (jpeg2000htdec.c:395-
-        427), quad 1's corners then quad 2's, in stream order."""
-        two = lambda x, y: torch.stack([x, y], 1).repeat_interleave(4, 1)
-        U, act = two(U1, U2), two(a1, a2)
-        sp, ek, e1 = (two(x, y) for x, y in zip(q1[1:], q2[1:]))
-        m = (((sp >> corner) & 1) * U - ((ek >> corner) & 1)).clamp(max=clamp)
-        do = act & (m > 0)
-        mm = torch.where(do, m, 0)
-        v = ms.peek(torch.cumsum(mm, 1) - mm) & ((1 << mm) - 1)
-        ms.pos = ms.pos + mm.sum(1)
-        v = v + (((e1 >> corner) & 1) << mm)
-        e_n = torch.frexp((v | 1).to(torch.float64))[1].to(_I64)
-        val = ((((v >> 1) + 1) << pLSB) | (1 << (pLSB - 1))
-               | ((v & 1) << 31)) & _U32
-        return torch.where(do, val, 0), torch.where(do, e_n, 0)
-
-    mu = torch.zeros((N, qh, qw, 4), dtype=_I64, device=dev)
-    sig = torch.zeros((N, qh, qw), dtype=_I64, device=dev)
-    ok = torch.ones(N, dtype=torch.bool, device=dev)
+    rec = torch.zeros((N, qh, qw), dtype=_I64, device=dev)
     rows = min(int(qhs.max()), qh) if N else 0
     pairs = (min(int(qws.max()), qw) + 1) // 2 if N else 0
     zcol = torch.zeros((N, 1), dtype=_I64, device=dev)
-    e_prev = torch.zeros((N, qw, 4), dtype=_I64, device=dev)
     for r in range(rows):
         rowact = r < qhs
         if r:
-            # row-above neighbourhood (jpeg2000htdec.c:784-919)
-            spa = sig[:, r - 1]
+            # row-above significance (jpeg2000htdec.c:784-919)
+            spa = rec[:, r - 1] & 0xF
             sN, sNE = (spa >> 1) & 1, (spa >> 3) & 1
             sNW = torch.cat([zcol, sNE[:, :-1]], 1)
             sNF = torch.cat([sN[:, 1:], zcol], 1)
             cA = torch.cat([(sN | sNW) | ((sNE | sNF) << 2), zcol], 1)
-            eN, eNE = e_prev[:, :, 1], e_prev[:, :, 3]
-            eNW = torch.cat([zcol, eNE[:, :-1]], 1)
-            eNF = torch.cat([eN[:, 1:], zcol], 1)
-            kmax = torch.cat([torch.maximum(torch.maximum(eNW, eN),
-                                            torch.maximum(eNE, eNF)),
-                              zcol], 1)
-        e_row = torch.zeros((N, qw, 4), dtype=_I64, device=dev)
         context, wprev = zero, zero
         for p in range(pairs):
             j1, j2 = 2 * p, 2 * p + 1
@@ -261,35 +257,89 @@ def cleanup_ref(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
                 context = torch.where(a2, _ctx_first(q2[1]), torch.where(
                     a1, _ctx_first(q1[1]), context))
                 u1, u2 = u_pair(True, q1[0], q2[0], a1, a2)
-                U1, U2 = 1 + u1, torch.where(a2, 1 + u2, 0)
             else:
                 c2 = cA[:, min(j2, qw)]
                 q1, q2 = sig_emb_pair(
                     1, cA[:, j1] | (wprev << 1),
                     lambda sp: c2 | (_west(sp) << 1), a1, a2)
                 u1, u2 = u_pair(False, q1[0], q2[0], a1, a2)
-                k1, k2 = kmax[:, j1], kmax[:, min(j2, qw)]
-                U1 = (_gamma(q1[1]) * (k1 - 1)).clamp(min=1) + u1
-                U2 = torch.where(
-                    a2, (_gamma(q2[1]) * (k2 - 1)).clamp(min=1) + u2, 0)
                 wprev = torch.where(a2, _west(q2[1]), torch.where(
                     a1, _west(q1[1]), wprev))
-            ok = ok & (~a1 | (U1 <= maxbp)) & (~a2 | (U2 <= maxbp))
-            vals, es = recover(U1, U2, q1, q2, a1, a2)
-            mu[:, r, j1], e_row[:, j1], sig[:, r, j1] = \
-                vals[:, :4], es[:, :4], q1[1]
+            rec[:, r, j1] = record(q1, u1)
             if j2 < qw:
-                mu[:, r, j2], e_row[:, j2], sig[:, r, j2] = \
-                    vals[:, 4:], es[:, 4:], q2[1]
-        e_prev = e_row
+                rec[:, r, j2] = record(q2, u2)
+    return rec.to(torch.int32)
+
+
+def magsgn_pass_ref(rec, msw, pLSB, maxbp, ms_lim, qws, qhs, qw: int,
+                    qh: int, ms_class: int):
+    """Plain PyTorch MagSgn pass: quad records -> (mu, sig, ok), one quad
+    row of every lane at a time; each quad's MagSgn bit offset is a
+    ``cumsum`` of the sample counts along the row."""
+    dev = msw.device
+    N = msw.shape[0]
+    clamp = min(int(ms_class), 25)
+    ms = _Stream(msw, ms_lim)
+    rec = rec.to(_I64)
+    qws, qhs = qws.to(_I64), qhs.to(_I64)
+    pLSB = pLSB.to(_I64)[:, None]
+    maxbp = maxbp.to(_I64)[:, None]
+    corner = torch.arange(4, device=dev)
+    cols = torch.arange(qw, device=dev)[None, :]
+    mu = torch.zeros((N, qh, qw, 4), dtype=_I64, device=dev)
+    sig = torch.zeros((N, qh, qw), dtype=_I64, device=dev)
+    ok = torch.ones(N, dtype=torch.bool, device=dev)
+    zcol = torch.zeros((N, 1), dtype=_I64, device=dev)
+    e_prev = torch.zeros((N, qw, 4), dtype=_I64, device=dev)
+    bit = lambda x: (x[..., None] >> corner) & 1        # (N, qw, 4)
+    rows = min(int(qhs.max()), qh) if N else 0
+    for r in range(rows):
+        act = (r < qhs)[:, None] & (cols < qws[:, None])   # (N, qw)
+        q = torch.where(act, rec[:, r], 0)
+        sp, ek, e1 = q & 0xF, (q >> 4) & 0xF, (q >> 8) & 0xF
+        u = q >> _REC_U_SHIFT
+        if r == 0:
+            U = 1 + u
+        else:
+            # kmax over the row above's bottom exponents
+            # (jpeg2000htdec.c:784-919)
+            eN, eNE = e_prev[:, :, 1], e_prev[:, :, 3]
+            eNW = torch.cat([zcol, eNE[:, :-1]], 1)
+            eNF = torch.cat([eN[:, 1:], zcol], 1)
+            kmax = torch.maximum(torch.maximum(eNW, eN),
+                                 torch.maximum(eNE, eNF))
+            U = (_gamma(sp) * (kmax - 1)).clamp(min=1) + u
+        ok = ok & (~act | (U <= maxbp)).all(1)
+        # MagSgn recovery (jpeg2000htdec.c:395-427)
+        m = (bit(sp) * U[..., None] - bit(ek)).clamp(max=clamp)
+        do = (act[..., None] & (m > 0)).reshape(N, 4 * qw)
+        mm = torch.where(do, m.reshape(N, 4 * qw), 0)
+        v = ms.peek(torch.cumsum(mm, 1) - mm) & ((1 << mm) - 1)
+        ms.pos = ms.pos + mm.sum(1)
+        v = v + (bit(e1).reshape(N, 4 * qw) << mm)
+        e_n = torch.frexp((v | 1).to(torch.float64))[1].to(_I64)
+        val = ((((v >> 1) + 1) << pLSB) | (1 << (pLSB - 1))
+               | ((v & 1) << 31)) & _U32
+        mu[:, r] = torch.where(do, val, 0).view(N, qw, 4)
+        e_prev = torch.where(do, e_n, 0).view(N, qw, 4)
+        sig[:, r] = sp
     # corner i of a quad sits at (dy, dx) = (i & 1, i >> 1)
     ras = mu.view(N, qh, qw, 2, 2).permute(0, 1, 4, 2, 3) \
         .reshape(N, 2 * qh, 2 * qw)
     return _to_i32_bits(ras), sig.to(torch.int32), ok
 
 
+def cleanup_ref(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
+                qw: int, qh: int, ms_class: int):
+    """Plain PyTorch cleanup decode, the whole contract of the module
+    docstring: ``magsgn_pass_ref(vlc_pass_ref(...), ...)``."""
+    rec = vlc_pass_ref(melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    return magsgn_pass_ref(rec, msw, pLSB, maxbp, ms_lim, qws, qhs, qw, qh,
+                           ms_class)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 _DEVICE_TABLES = {}
@@ -306,50 +356,86 @@ def _device_tables(device):
     return t
 
 
-def _cleanup_cuda(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
-                  qw: int, qh: int, ms_class: int):
-    dev = msw.device
-    N = msw.shape[0]
+def _check_dims(qw: int, qh: int):
     if not (1 <= qw <= 32 and 1 <= qh <= 32):
-        raise ValueError(f"qw={qw}, qh={qh}: the kernel covers <= 32x32 "
+        raise ValueError(f"qw={qw}, qh={qh}: the kernels cover <= 32x32 "
                          "quads (64x64 codeblocks)")
+
+
+def _device_of(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
+def ht_vlc_pass(melw, vlcw, mel_lim, qws, qhs, qw: int, qh: int):
+    """Quad records (N, qh, qw) int32 of the VLC pass. CPU tensors take
+    ``vlc_pass_ref``; CUDA tensors launch ``csrc/ht_vlc_pass.cu``."""
+    dev = _device_of(melw)
+    if dev.type == "cpu":
+        return vlc_pass_ref(melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    _check_dims(qw, qh)
+    N = melw.shape[0]
+    for name, t in dict(melw=melw, vlcw=vlcw, mel_lim=mel_lim, qws=qws,
+                        qhs=qhs).items():
+        check_tensor(t, name, torch.int32, dev, 2 if name.endswith("w")
+                     else 1, N)
+    rec = torch.empty((N, qh, qw), dtype=torch.int32, device=dev)
+    if N == 0:
+        return rec
+    err = build.load().lib.ht_vlc_pass_launch(
+        melw.data_ptr(), melw.shape[1], vlcw.data_ptr(), vlcw.shape[1],
+        mel_lim.data_ptr(), qws.data_ptr(), qhs.data_ptr(),
+        _device_tables(dev).data_ptr(), N, qw, qh, rec.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "ht_vlc_pass_launch")
+    ht_vlc_pass.launches += 1
+    return rec
+
+
+def ht_magsgn_pass(rec, msw, pLSB, maxbp, ms_lim, qws, qhs, qw: int,
+                   qh: int, ms_class: int):
+    """(mu, sig, ok) from the quad records. CPU tensors take
+    ``magsgn_pass_ref``; CUDA tensors launch ``csrc/ht_magsgn_pass.cu``."""
+    dev = _device_of(msw)
+    if dev.type == "cpu":
+        return magsgn_pass_ref(rec, msw, pLSB, maxbp, ms_lim, qws, qhs, qw,
+                               qh, ms_class)
+    _check_dims(qw, qh)
     if not 1 <= ms_class <= 32:
         raise ValueError(f"ms_class={ms_class} out of range")
-    named = dict(msw=msw, melw=melw, vlcw=vlcw, pLSB=pLSB, maxbp=maxbp,
-                 ms_lim=ms_lim, mel_lim=mel_lim, qws=qws, qhs=qhs)
-    for name, t in named.items():
-        ndim = 2 if name in ("msw", "melw", "vlcw") else 1
-        check_tensor(t, name, torch.int32, dev, ndim, N)
+    N = msw.shape[0]
+    for name, t in dict(msw=msw, pLSB=pLSB, maxbp=maxbp, ms_lim=ms_lim,
+                        qws=qws, qhs=qhs).items():
+        check_tensor(t, name, torch.int32, dev, 2 if name == "msw" else 1,
+                     N)
+    check_tensor(rec, "rec", torch.int32, dev, 3, N)
+    if tuple(rec.shape) != (N, qh, qw):
+        raise ValueError(f"rec has shape {tuple(rec.shape)}, expected "
+                         f"{(N, qh, qw)}")
     mu = torch.empty((N, 2 * qh, 2 * qw), dtype=torch.int32, device=dev)
     sig = torch.empty((N, qh, qw), dtype=torch.int32, device=dev)
     ok = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return mu, sig, ok
-    lib = build.load().lib
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ht_cleanup_launch(
-        msw.data_ptr(), msw.shape[1], melw.data_ptr(), melw.shape[1],
-        vlcw.data_ptr(), vlcw.shape[1],
-        pLSB.data_ptr(), maxbp.data_ptr(), ms_lim.data_ptr(),
-        mel_lim.data_ptr(), qws.data_ptr(), qhs.data_ptr(),
-        _device_tables(dev).data_ptr(), N, qw, qh, ms_class,
-        mu.data_ptr(), sig.data_ptr(), ok.data_ptr(), stream)
-    build.check(err, "ht_cleanup_launch")
-    decode_cleanup_scan_dims.launches += 1
+    err = build.load().lib.ht_magsgn_pass_launch(
+        rec.data_ptr(), msw.data_ptr(), msw.shape[1], pLSB.data_ptr(),
+        maxbp.data_ptr(), ms_lim.data_ptr(), qws.data_ptr(), qhs.data_ptr(),
+        N, qw, qh, ms_class, mu.data_ptr(), sig.data_ptr(), ok.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "ht_magsgn_pass_launch")
+    ht_magsgn_pass.launches += 1
     return mu, sig, ok
+
+
+ht_vlc_pass.launches = 0        # CUDA kernel launches
+ht_magsgn_pass.launches = 0     # CUDA kernel launches
 
 
 def decode_cleanup_scan_dims(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
                              qws, qhs, qw: int, qh: int, ms_class: int):
-    """(mu, sig, ok) for N lanes; see the module docstring. CPU tensors
-    take ``cleanup_ref``; CUDA tensors launch the CUDA kernel."""
-    if msw.device.type == "cpu":
-        return cleanup_ref(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
-                           qws, qhs, qw, qh, ms_class)
-    if msw.device.type != "cuda":
-        raise ValueError(f"unsupported device {msw.device}")
-    return _cleanup_cuda(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
-                         qws, qhs, qw, qh, ms_class)
-
-
-decode_cleanup_scan_dims.launches = 0   # CUDA kernel launches
+    """(mu, sig, ok) for N lanes; see the module docstring: the VLC pass,
+    then the MagSgn pass on its records."""
+    rec = ht_vlc_pass(melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    return ht_magsgn_pass(rec, msw, pLSB, maxbp, ms_lim, qws, qhs, qw, qh,
+                          ms_class)

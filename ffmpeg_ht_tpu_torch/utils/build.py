@@ -34,10 +34,14 @@ _I64 = ctypes.c_int64
 
 # C signatures of the kernels' entry points (see csrc/*.cu)
 _SIGNATURES = {
-    "ht_cleanup_launch": [_P, _I, _P, _I, _P, _I,        # msw, melw, vlcw
-                          _P, _P, _P, _P, _P, _P,        # per-lane vectors
-                          _P, _I, _I, _I, _I,            # tables, N, qw..
-                          _P, _P, _P, _P],               # mu, sig, ok, stream
+    "ht_vlc_pass_launch": [_P, _I, _P, _I,               # melw, vlcw
+                           _P, _P, _P,                   # mel_lim, qws, qhs
+                           _P, _I, _I, _I,               # tables, N, qw, qh
+                           _P, _P],                      # rec, stream
+    "ht_magsgn_pass_launch": [_P, _P, _I,                # rec, msw
+                              _P, _P, _P, _P, _P,        # per-lane vectors
+                              _I, _I, _I, _I,            # N, qw, qh, class
+                              _P, _P, _P, _P],           # mu, sig, ok, stream
     "rct_writeframe_launch": [_P, _P, _P, _I64, _I, _P, _I, _P],
 }
 

@@ -6,17 +6,21 @@ card with
 
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
-Integer kernels: the match is exact (mu / sig on every ok lane, ok on
-every lane; RCT samples bit for bit).
+Integer kernels: the match is exact (the VLC pass's records on every
+lane; the MagSgn pass's mu / sig / ok on every lane from the same
+records; the pair's mu / sig on every ok lane and ok on every lane; RCT
+samples bit for bit). The lanes are ragged (odd quad widths, every shape
+up to the raster), with inert lanes and lanes whose U bound fails.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ffmpeg_ht_tpu.ops.ht_batch import prepare_streams_batch, stream_limits
-from ffmpeg_ht_tpu.ops.ht_enc import encode_cleanup
 from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_streams_batch,
+                                              stream_limits)
+from ffmpeg_ht_tpu_torch.ops.ht_enc import encode_cleanup
 
 pytestmark = pytest.mark.cuda
 
@@ -79,20 +83,67 @@ def _lanes(seed, n, qw, qh):
     return out, min(int(zb.max()) + 1, 25)
 
 
+def _launches():
+    return ht_scan.ht_vlc_pass.launches, ht_scan.ht_magsgn_pass.launches
+
+
 @pytest.mark.parametrize("qw,qh,n,seed", [(32, 32, 200, 1), (8, 8, 333, 2),
                                           (16, 4, 129, 3)])
 def test_cleanup_kernel_matches_ref(cuda, qw, qh, n, seed):
     arrays, msc = _lanes(seed, n, qw, qh)
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
-    before = ht_scan.decode_cleanup_scan_dims.launches
+    before = _launches()
     mu, sig, ok = ht_scan.decode_cleanup_scan_dims(*args, qw, qh, msc)
     torch.cuda.synchronize()
-    assert ht_scan.decode_cleanup_scan_dims.launches == before + 1
+    assert _launches() == (before[0] + 1, before[1] + 1)
     mu_r, sig_r, ok_r = ht_scan.cleanup_ref(*args, qw, qh, msc)
     assert torch.equal(ok, ok_r)
     assert not bool(ok_r.all()) and int(ok_r.sum()) > n // 2
     assert torch.equal(mu[ok_r], mu_r[ok_r])
     assert torch.equal(sig[ok_r], sig_r[ok_r])
+
+
+@pytest.mark.parametrize("qw,qh,n,seed", [(32, 32, 300, 11), (16, 16, 257, 12),
+                                          (16, 32, 97, 13)])
+def test_vlc_pass_kernel_matches_ref(cuda, qw, qh, n, seed):
+    arrays, _msc = _lanes(seed, n, qw, qh)
+    msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs = \
+        [torch.from_numpy(a).to(cuda) for a in arrays]
+    assert (qws.remainder(2) == 1).any() and (qws == 0).any()
+    before = ht_scan.ht_vlc_pass.launches
+    rec = ht_scan.ht_vlc_pass(melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    torch.cuda.synchronize()
+    assert ht_scan.ht_vlc_pass.launches == before + 1
+    want = ht_scan.vlc_pass_ref(melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    assert rec.dtype == torch.int32 and torch.equal(rec, want)
+
+
+@pytest.mark.parametrize("random_records", [False, True])
+@pytest.mark.parametrize("qw,qh,n,seed", [(32, 32, 300, 21), (16, 16, 257, 22),
+                                          (32, 8, 97, 23)])
+def test_magsgn_pass_kernel_matches_ref(cuda, qw, qh, n, seed,
+                                        random_records):
+    """From the same records, mu / sig / ok agree on every lane, the lanes
+    whose U bound fails included; random records exercise every field."""
+    arrays, msc = _lanes(seed, n, qw, qh)
+    msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs = \
+        [torch.from_numpy(a).to(cuda) for a in arrays]
+    rec = ht_scan.vlc_pass_ref(melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    if random_records:
+        rng = np.random.default_rng(seed)
+        f = lambda hi: rng.integers(0, hi, (n, qh, qw))
+        rec = torch.from_numpy((f(16) | f(16) << 4 | f(16) << 8 | f(8) << 12)
+                               .astype(np.int32)).to(cuda)
+    before = ht_scan.ht_magsgn_pass.launches
+    mu, sig, ok = ht_scan.ht_magsgn_pass(rec, msw, pLSB, maxbp, ms_lim, qws,
+                                         qhs, qw, qh, msc)
+    torch.cuda.synchronize()
+    assert ht_scan.ht_magsgn_pass.launches == before + 1
+    mu_r, sig_r, ok_r = ht_scan.magsgn_pass_ref(rec, msw, pLSB, maxbp, ms_lim,
+                                                qws, qhs, qw, qh, msc)
+    assert not bool(ok_r.all())
+    assert torch.equal(ok, ok_r)
+    assert torch.equal(mu, mu_r) and torch.equal(sig, sig_r)
 
 
 def test_cleanup_kernel_rejects_bad_args(cuda):

@@ -6,9 +6,11 @@ the negotiated pixel format, for v3-eligible streams (96x128,
 nreslevels=3, 32x32 codeblocks: every DWT level takes the band-direct
 path). Also pinned: the port's ``finish_v3`` arrays, the prefill scatter
 with its trash slot against the JAX program, the routing of streams
-outside the slice, and that the port never imports ``jax``.
+outside the slice, and that the port imports neither ``jax`` nor the
+JAX package.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -21,11 +23,11 @@ from ffmpeg_ht_tpu.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu.models import fastpath as FP
 from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k, encode_frame_t800
-from ffmpeg_ht_tpu.utils.errors import InvalidData
 from ffmpeg_ht_tpu_torch.models import fastpath as port_fp
 from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENC = dict(nreslevels=3, log2_cblk_width=5, log2_cblk_height=5)
@@ -63,14 +65,16 @@ def _source_bytes(name, fmt_depth):
 def test_decoder_matches_jax_and_source(name, dec, jax_dec):
     data = STREAMS[name]
     v3_before = dec.v3_frames
-    launches = (ht_scan.decode_cleanup_scan_dims.launches,
+    launches = (ht_scan.ht_vlc_pass.launches, ht_scan.ht_magsgn_pass.launches,
                 mct_cuda.rct_writeframe.launches)
     got = dec.decode(data)
     assert dec.v3_frames == v3_before + 1 and dec.host_frames == 0
-    assert launches == (ht_scan.decode_cleanup_scan_dims.launches,
+    assert launches == (ht_scan.ht_vlc_pass.launches,
+                        ht_scan.ht_magsgn_pass.launches,
                         mct_cuda.rct_writeframe.launches)
     want = jax_dec.decode(data)
-    assert got.fmt == want.fmt
+    # each package has its own PixFmt class: compare the fields
+    assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
     assert got.tobytes() == want.tobytes()
     assert got.tobytes() == _source_bytes(name, 8 * got.fmt.bytes_per_sample)
 
@@ -184,16 +188,31 @@ def test_cuda_without_card_raises():
 
 
 def test_port_never_imports_jax(tmp_path):
+    """In a fresh interpreter, encode with the port's encoder and decode
+    with the port's Decoder: neither ``jax`` nor any ``ffmpeg_ht_tpu``
+    module may be loaded afterwards."""
     path = tmp_path / "gray8.j2k"
     path.write_bytes(STREAMS["gray8"])
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
+        "import numpy as np\n"
         "from ffmpeg_ht_tpu_torch.models.decoder import Decoder\n"
-        f"fr = Decoder(device='cpu').decode(open({str(path)!r}, 'rb')"
-        ".read())\n"
+        "from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k\n"
+        f"data = open({str(path)!r}, 'rb').read()\n"
+        "img = np.random.default_rng(3).integers(0, 1024, (96, 128, 3),\n"
+        "                                        dtype=np.uint16)\n"
+        f"own = encode_frame_htj2k(img, depth=10, mct=True, **{ENC!r})\n"
+        "dec = Decoder(device='cpu')\n"
+        "fr = dec.decode(data)\n"
         "assert fr.planes[0].shape == (96, 128), fr.planes[0].shape\n"
+        "fr = dec.decode(own)\n"
+        "assert (fr.planes[0].reshape(96, 128, 3) == img << 6).all()\n"
+        "assert dec.v3_frames == 2\n"
         "assert 'jax' not in sys.modules\n"
+        "bad = [m for m in sys.modules if m == 'ffmpeg_ht_tpu'\n"
+        "       or m.startswith('ffmpeg_ht_tpu.')]\n"
+        "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=str(tmp_path))

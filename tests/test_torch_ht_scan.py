@@ -2,7 +2,8 @@
 
 The same numpy lane arrays go through ``ffmpeg_ht_tpu.ops.ht_scan`` and the
 port's ``decode_cleanup_scan_dims``, which takes the plain ``cleanup_ref``
-for CPU tensors. mu / sig must be bit-identical on every lane whose ok is
+for CPU tensors (the composition of ``vlc_pass_ref`` and
+``magsgn_pass_ref``). mu / sig must be bit-identical on every lane whose ok is
 true, and ok identical on every lane. The Pallas kernel is reached
 through its reference: tests/test_ht_scan_pallas.py pins
 ``decode_cleanup_pallas`` bit-identical to ``_cleanup_impl``.
@@ -124,6 +125,25 @@ def test_cleanup_ref_dims_corpus(tight):
     assert not got[0].numpy()[inert].any()
 
 
+def test_vlc_pass_ref_sig_matches_jax():
+    """The VLC pass alone: the ``sp`` field of its records is the JAX
+    package's quad significance on every lane of the dims corpus, and
+    quads outside a lane's (qws, qhs) hold 0."""
+    arrays, msc = _dims_corpus()
+    want = decode_cleanup_scan_dims(*(jnp.asarray(arrays[k]) for k in KEYS),
+                                    qw=32, qh=32, ms_class=msc)
+    rec = port.vlc_pass_ref(*(_tt(arrays[k]) for k in
+                              ("melw", "vlcw", "mel_lim", "qws", "qhs")),
+                            32, 32).numpy()
+    assert rec.dtype == np.int32 and rec.shape == (len(arrays["qws"]), 32, 32)
+    assert np.array_equal(rec & 0xF, np.asarray(want[1]))
+    outside = ((np.arange(32)[None, None, :] >= arrays["qws"][:, None, None])
+               | (np.arange(32)[None, :, None]
+                  >= arrays["qhs"][:, None, None]))
+    assert not rec[outside].any() and rec[~outside].any()
+    assert int((rec >> 12).max()) <= 98
+
+
 def test_cleanup_ref_highdepth():
     """12-bit frame lanes (tests/test_ht_scan_pallas.py high-depth case)."""
     rng = np.random.default_rng(2718)
@@ -148,10 +168,11 @@ def test_cleanup_ref_highdepth():
 
 def test_cpu_tensors_never_launch_the_kernel():
     arrays, msc = _dims_corpus()
-    before = port.decode_cleanup_scan_dims.launches
+    before = (port.ht_vlc_pass.launches, port.ht_magsgn_pass.launches)
     port.decode_cleanup_scan_dims(*(_tt(arrays[k]) for k in KEYS), 32, 32,
                                   msc)
-    assert port.decode_cleanup_scan_dims.launches == before
+    assert (port.ht_vlc_pass.launches,
+            port.ht_magsgn_pass.launches) == before
     with pytest.raises(ValueError):
         port.decode_cleanup_scan_dims(
             *(_tt(arrays[k]).to("meta") for k in KEYS), 32, 32, msc)

@@ -19,8 +19,8 @@ Encodes the natural-content DCI-4K 10-bit 4:4:4 RCT frame of
      samples the card's SM clock and power draw every 100 ms, and prints
      their median and maximum.
 
-``--trace`` also writes the profile as a Chrome trace. Needs a card and
-no JAX.
+``--trace`` also writes the profile as a Chrome trace. Needs a card, and
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -42,10 +42,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ffmpeg_ht_tpu.codestream.parser import parse_codestream
-from ffmpeg_ht_tpu.models import fastpath as FP
-from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k
+from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
+from ffmpeg_ht_tpu_torch.models import fastpath as FP
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
 
 
