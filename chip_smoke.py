@@ -3,28 +3,46 @@
 
     python3 chip_smoke.py
 
-Drives ``ffmpeg_ht_tpu_torch`` end to end at the headline size: three
-seeded DCI-4K (4096x2160) 10-bit 4:4:4 lossless frames (reversible 5/3 +
-RCT, 64x64 codeblocks, one 4096x4096 tile), decoded by
-``Decoder(device="cuda").decode_stream``. Phases, one line each; any
-failure raises and the script exits non-zero:
+Drives ``ffmpeg_ht_tpu_torch`` end to end at two configurations of
+BASELINE.json: config 3, three seeded DCI-4K (4096x2160) 10-bit 4:4:4
+lossless frames (reversible 5/3 + RCT, 64x64 codeblocks, one 4096x4096
+tile) through ``Decoder(device="cuda").decode_stream``; and config 2,
+four 1920x1080 8-bit RGB lossy frames (9/7 + ICT, 64x64 codeblocks, one
+2048x2048 tile, 6 resolution levels, bench.py:345-355) through
+``Decoder(device="cuda", bitexact=False).decode_batch`` and
+``Decoder(device="cuda", bitexact=True).decode_stream``. Phases, one
+line or more each; any failure raises and the script exits non-zero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ffmpeg_ht_tpu_torch/csrc and the port's
      native host tier from ffmpeg_ht_tpu_torch/native;
-  3. encode the three frames with the port's encoder (natural
+  3. encode the three c3 frames with the port's encoder (natural
      value-noise, smooth, uniform random);
   4. each kernel against its plain PyTorch version on the card, on the
-     first frame's real lanes and planes: the HT cleanup's VLC pass
+     first c3 frame's real lanes and planes: the HT cleanup's VLC pass
      (records exact), its MagSgn pass (on the same records) and the pair
      against ``cleanup_ref``, then RCT; each with its time by CUDA
      events, its bound from the bytes these inputs need, and the share
      of the bound;
-  5. the main path: launch counts reset, three frames decoded, counts
+  5. the c3 main path: launch counts reset, three frames decoded, counts
      read; every frame must equal its source in the negotiated pixel
      format (rgb48le, samples << 6), every kernel must have launched once
      per frame and all frames must have gone through the v3 device
-     program; then the median ms per frame over a few repetitions.
+     program; then the median ms per frame over a few repetitions;
+  6. the c2 irreversible path: the four frames encoded with the port's
+     encoder (two seeded natural, two smooth); from the very program and
+     lane arguments ``decode_batch`` runs (``Decoder._v3_program``), ICT
+     against its plain version in both modes on the frames' planes after
+     the inverse DWT, all four in one launch and one frame alone (time,
+     bound, share), and the HT cleanup kernels against their plain
+     versions on the batch's lanes, as in phase 4; the main path
+     ``decode_batch`` (float 9/7):
+     counts reset, one launch of each kernel for the batch, counts read,
+     every frame within 1 LSB of the host float oracle; the integer path
+     ``decode_stream`` byte-equal to the host integer oracle with every
+     frame on the device; a small stream whose lowest DWT level is below
+     8x8 (flat fallback) byte-equal to the host oracle; then
+     ``decode_batch`` ms per frame and ``bench_resident`` ms per frame.
 
 The last lines are the card's name and power limit, a JSON object with
 the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
@@ -51,25 +69,32 @@ import torch
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu_torch.models import assembly as ASM
 from ffmpeg_ht_tpu_torch.models import fastpath as FP
+from ffmpeg_ht_tpu_torch.models import host_decoder
 from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
 from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.utils import build, native
 
 W, H, DEPTH = 4096, 2160, 10
 ENC = dict(depth=DEPTH, tile_width=4096, tile_height=4096,
            log2_cblk_width=6, log2_cblk_height=6, mct=True)
 REPS = 3
+# BASELINE config 2 (bench.py:345-355): 1080p 8-bit RGB, 9/7 + ICT
+C2_W, C2_H = 1920, 1080
+C2_ENC = dict(pred=0, mct=True, tile_width=2048, tile_height=2048,
+              log2_cblk_width=6, log2_cblk_height=6, nreslevels=6)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published, at the 700 W limit
 # the earlier cleanup kernel, one thread per codeblock, on an H100 80GB
 # HBM3 at 700 W (PERF.md, section 6): printed beside the split design
 ONE_THREAD_CLEANUP_MS = 2.46
 
 
-def _natural(rng, h, w):
-    """Mixed-frequency value noise (octaves at 8/32/128/512 px), 10-bit."""
+def _natural(rng, h, w, maxval=1023, dtype=np.uint16):
+    """Mixed-frequency value noise (octaves at 8/32/128/512 px) scaled to
+    [0, maxval] (10-bit by default)."""
     acc = np.zeros((h, w))
     for period, amp in ((8, 0.5), (32, 0.25), (128, 0.15), (512, 0.1)):
         g = rng.standard_normal((h // period + 2, w // period + 2))
@@ -81,13 +106,13 @@ def _natural(rng, h, w):
         acc += amp * ((a * (1 - fx) + b * fx) * (1 - fy)
                       + (c * (1 - fx) + d * fx) * fy)
     acc = (acc - acc.min()) / (np.ptp(acc) + 1e-9)
-    return (acc * 1023).astype(np.uint16)
+    return (acc * maxval).astype(dtype)
 
 
-def _smooth(h, w):
+def _smooth(h, w, maxval=1023, dtype=np.uint16):
     base = np.sin(np.linspace(0, 7, h)[:, None]) \
         * np.cos(np.linspace(0, 11, w)[None, :])
-    return (((base + 1) / 2) * 1023).astype(np.uint16)
+    return (((base + 1) / 2) * maxval).astype(dtype)
 
 
 def _rgb(plane):
@@ -103,19 +128,378 @@ def _gpu_name_power() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def _bound(nbytes) -> float:
+    """ms to move `nbytes` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _cuda_ms(fn, reps: int, head_start: bool = False) -> float:
     """Mean device ms per call of fn() over `reps` calls (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call). With `head_start`, the stream first spins
+    for ~0.2 ms per call, so that the host has queued every call before
+    the first one runs: the events then time back-to-back kernels, not
+    the wrapper's host work between two short launches."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if head_start:
+        torch.cuda._sleep(int(4e5 * reps))     # ~2 GHz cycles
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _laps(dec, streams, bitexact: bool, dev):
+    """Where a batch's time goes: the calls Decoder.decode_batch makes for
+    `streams`, timed one by one with a device sync after each device step
+    (host clock, ms for the whole batch)."""
+    hdrs = [parse_codestream(d, bitexact=bitexact) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+    (prog,) = [p for k, p in fg.v3_progs.items() if k[0] == len(streams)]
+    laps, val = {}, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, step in (
+            ("parse", lambda _: [parse_codestream(d, bitexact=bitexact)
+                                 for d in streams]),
+            ("t2_native", lambda _: [FP.parse_frame_flat(h, fg)
+                                     for h in hdrs]),
+            ("build_v3_frame", lambda cols: [FP.build_v3_frame(fg, c)
+                                             for c in cols]),
+            ("stream_prep", lambda fcs: finish_v3_numpy(fg, fcs,
+                                                        fg.geom.total)[0]),
+            ("upload", lambda a: {k: to_torch(v, dev) for k, v in a.items()}),
+            ("device_program", lambda a: prog(**a)),
+            ("fetch", lambda p: p.cpu()),
+            ("write_frame", lambda p: dec._split_frames(
+                hdrs, fg.tiles, fg.geom, p))):
+        val = step(val)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        laps[name] = (t1 - t0) * 1e3
+        t0 = t1
+    total = sum(laps.values())
+    return (" | ".join(f"{k} {v:.1f}" for k, v in laps.items())
+            + f" | total {total:.1f}; device program "
+            f"{100 * laps['device_program'] / total:.1f}% of it")
+
+
+def _cleanup_check(args, fcs, qw, qh, msc):
+    """The HT cleanup kernels against their plain versions on the lanes of
+    `args` (a device program's lane arguments, on the card; `fcs` are its
+    frames' v3 columns): the VLC pass (records exact), the MagSgn pass on
+    the same records, and the pair against ``cleanup_ref``. Raises on any
+    difference. Returns, for "vlc", "magsgn" and "pair", the max abs
+    error, the kernel's ms by CUDA events, the plain version's ms (host
+    clock, one call) and the bound from the bytes these lanes need; and
+    the lanes' sizes under "lanes"."""
+    (msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs) = (
+        args[k] for k in ("msw", "melw", "vlcw", "pLSB", "maxbp", "ms_lim",
+                          "mel_lim", "qws", "qhs"))
+    N = msw.shape[0]
+    vlc_in = (melw, vlcw, mel_lim, qws, qhs, qw, qh)
+    u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
+
+    def plain(fn, *a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fn(*a)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t1) * 1e3
+
+    rec_k = ht_scan.ht_vlc_pass(*vlc_in)
+    rec_r, vlc_plain_ms = plain(ht_scan.vlc_pass_ref, *vlc_in)
+    vlc_err = int((rec_k.to(torch.int64) - rec_r.to(torch.int64))
+                  .abs().max())
+    if vlc_err:
+        raise RuntimeError(f"VLC pass differs from vlc_pass_ref (max abs "
+                           f"err {vlc_err})")
+
+    ms_in = (msw, pLSB, maxbp, ms_lim, qws, qhs, qw, qh, msc)
+    mu_k, sig_k, ok_k = ht_scan.ht_magsgn_pass(rec_r, *ms_in)
+    (mu_r, sig_r, ok_r), magsgn_plain_ms = plain(ht_scan.magsgn_pass_ref,
+                                                 rec_r, *ms_in)
+    if not torch.equal(ok_k, ok_r) or not bool(ok_r.all()):
+        raise RuntimeError("MagSgn pass: ok flags differ from "
+                           "magsgn_pass_ref or a lane failed")
+    magsgn_err = max(int((u32(mu_k) - u32(mu_r)).abs().max()),
+                     int((sig_k - sig_r).abs().max()))
+    if magsgn_err:
+        raise RuntimeError(f"MagSgn pass differs from magsgn_pass_ref "
+                           f"(max abs err {magsgn_err})")
+
+    lane_args = (msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs)
+    mu_k, sig_k, ok_k = ht_scan.decode_cleanup_scan_dims(*lane_args, qw, qh,
+                                                         msc)
+    (mu_r, sig_r, ok_r), cleanup_plain_ms = plain(ht_scan.cleanup_ref,
+                                                  *lane_args, qw, qh, msc)
+    if not torch.equal(ok_k, ok_r) or not bool(ok_r.all()):
+        raise RuntimeError("cleanup pair: ok flags differ from cleanup_ref"
+                           " or a lane failed")
+    cleanup_err = max(int((u32(mu_k) - u32(mu_r)).abs().max()),
+                      int((sig_k - sig_r).abs().max()))
+    if cleanup_err:
+        raise RuntimeError(f"cleanup pair differs from cleanup_ref "
+                           f"(max abs err {cleanup_err})")
+
+    # bytes these inputs need: the segment bytes of the decoded lanes
+    # (MagSgn: [0, pcup); MEL and VLC: [pcup, lcup)), the per-lane
+    # vectors, the records, and mu + sig + ok
+    lc = np.concatenate([fc["lcups"][fc["qws"] > 0] for fc in fcs])
+    pc = np.concatenate([fc["pcups"][fc["qws"] > 0] for fc in fcs])
+    ms_bytes = int(pc.astype(np.int64).sum())
+    melvlc_bytes = int((lc - pc).astype(np.int64).sum())
+    rec_bytes = 4 * N * qh * qw
+    out_bytes = 4 * mu_k.numel() + 4 * sig_k.numel() + N
+    return dict(
+        lanes=dict(N=N, W=(msw.shape[1], melw.shape[1], vlcw.shape[1]),
+                   ms_bytes=ms_bytes, melvlc_bytes=melvlc_bytes),
+        vlc=dict(max_abs_err=vlc_err, plain_ms=vlc_plain_ms,
+                 ms=_cuda_ms(lambda: ht_scan.ht_vlc_pass(*vlc_in), 10, True),
+                 bound_ms=_bound(melvlc_bytes + 12 * N + 8192 + rec_bytes)),
+        magsgn=dict(max_abs_err=magsgn_err, plain_ms=magsgn_plain_ms,
+                    ms=_cuda_ms(lambda: ht_scan.ht_magsgn_pass(rec_r, *ms_in),
+                                10, True),
+                    bound_ms=_bound(rec_bytes + ms_bytes + 20 * N
+                                    + out_bytes)),
+        pair=dict(max_abs_err=cleanup_err, plain_ms=cleanup_plain_ms,
+                  ms=_cuda_ms(lambda: ht_scan.decode_cleanup_scan_dims(
+                      *lane_args, qw, qh, msc), 10, True),
+                  bound_ms=_bound(ms_bytes + melvlc_bytes + 32 * N + 8192
+                                  + out_bytes)))
+
+
+def _print_cleanup(phase, c):
+    for key, name in (("vlc", "VLC pass == vlc_pass_ref (records)"),
+                      ("magsgn", "MagSgn pass == magsgn_pass_ref (same "
+                                 "records)"),
+                      ("pair", "pair == cleanup_ref")):
+        m = c[key]
+        print(f"{phase}   {name}: kernel {m['ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms "
+              f"(bytes), {100 * m['bound_ms'] / m['ms']:.1f}% of bound")
+
+
+def _c2_streams(rng):
+    """BASELINE config 2's four frames, encoded by the port's encoder: two
+    seeded natural value-noise frames, then two of bench.py's smooth
+    frames (bench.py:348-350)."""
+    base = _smooth(C2_H, C2_W, 255, np.uint8)
+    sources = [_rgb(_natural(rng, C2_H, C2_W, 255, np.uint8))
+               for _ in range(2)] \
+        + [np.stack([np.roll(base, i, 1), base[::-1], base], 2)
+           for i in range(2)]
+    return [encode_frame_htj2k(f, **C2_ENC) for f in sources]
+
+
+def _counts():
+    return {"ht_vlc_pass": ht_scan.ht_vlc_pass.launches,
+            "ht_magsgn_pass": ht_scan.ht_magsgn_pass.launches,
+            "rct_writeframe": mct_cuda.rct_writeframe.launches,
+            "ict_writeframe": mct_cuda.ict_writeframe.launches}
+
+
+def _reset_counts():
+    for fn in (ht_scan.ht_vlc_pass, ht_scan.ht_magsgn_pass,
+               mct_cuda.rct_writeframe, mct_cuda.ict_writeframe):
+        fn.launches = 0
+
+
+def _host_diff(frame, data, bitexact: bool):
+    """(max abs difference, samples that differ) against the host oracle."""
+    want = host_decoder.decode_frame(data, bitexact=bitexact)
+    if frame.fmt.name != want.fmt.name:
+        raise RuntimeError(f"{frame.fmt.name} != host {want.fmt.name}")
+    a = np.frombuffer(frame.tobytes(), np.uint8).astype(np.int64)
+    b = np.frombuffer(want.tobytes(), np.uint8).astype(np.int64)
+    if a.shape != b.shape:
+        raise RuntimeError(f"{a.shape} samples != host {b.shape}")
+    d = np.abs(a - b)
+    return int(d.max()), int((d != 0).sum())
+
+
+def _ict_check(dec, streams, transform):
+    """ICT kernel against its plain version (+ pack) on the c2 frames'
+    planes after the inverse DWT, taken from the very program and lane
+    arguments that ``dec.decode_batch(streams)`` runs: at that path's
+    shape (one launch for the F frames) and at ``decode_stream``'s (one
+    launch for one frame). Returns (the numbers, ms by CUDA events and
+    bounds from the bytes moved; the program's lane arguments, its
+    frames' v3 columns and the program itself, for the cleanup check)."""
+    hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+    cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs]
+    prog, args = dec._v3_program(fg, cols_list)
+    F, dev = prog.frames, args["msw"].device
+    if not prog.band_direct or prog.transform != transform:
+        raise RuntimeError("c2 frames: expected the band-direct "
+                           f"{transform} program")
+    outs, _ok = prog.decode_planes(**args)
+    ys = [tuple(c.contiguous() for c in outs[3 * f:3 * f + 3])
+          for f in range(F)]
+    npx = ys[0][0].numel()
+    refs = [mct_cuda.ict_writeframe_ref(*y, 8, transform) for y in ys]
+    pairs = list(zip(mct_cuda.ict_writeframe(ys, 8, transform), refs)) \
+        + list(zip(mct_cuda.ict_writeframe(ys[:1], 8, transform), refs))
+    err = max(int((a - b).abs().max())
+              for got, ref in pairs for a, b in zip(got, ref))
+    packed_k = torch.empty(F * 3 * npx, dtype=torch.uint8, device=dev)
+    packed_r = torch.empty_like(packed_k)
+    one_k = torch.zeros(3 * npx, dtype=torch.uint8, device=dev)
+    mct_cuda.ict_writeframe(ys, 8, transform, out=packed_k)
+    mct_cuda.ict_writeframe(ys[:1], 8, transform, out=one_k)
+
+    def plain():
+        for f, y in enumerate(ys):
+            for i, c in enumerate(mct_cuda.ict_writeframe_ref(*y, 8,
+                                                              transform)):
+                pos = (3 * f + i) * npx
+                packed_r[pos:pos + npx] = \
+                    mct_cuda.narrow(c, torch.uint8).reshape(-1)
+
+    plain()
+    i32 = lambda t: t.to(torch.int32)
+    err = max(err, int((i32(packed_k) - i32(packed_r)).abs().max()),
+              int((i32(one_k) - i32(packed_r[:3 * npx])).abs().max()))
+    if err:
+        raise RuntimeError(f"ICT kernel ({ys[0][0].dtype}) differs from its "
+                           f"plain version (max abs err {err})")
+    # three 4-byte planes read and the uint8 samples written, per frame
+    nums = dict(
+        frames=F, max_abs_err=err, dtype=str(ys[0][0].dtype),
+        ms=_cuda_ms(lambda: mct_cuda.ict_writeframe(
+            ys, 8, transform, out=packed_k), 20, True),
+        plain_ms=_cuda_ms(plain, 5),
+        bound_ms=_bound(F * (3 * npx * 4 + 3 * npx)),
+        ms_one_frame=_cuda_ms(lambda: mct_cuda.ict_writeframe(
+            ys[:1], 8, transform, out=one_k), 20, True),
+        bound_ms_one_frame=_bound(3 * npx * 4 + 3 * npx),
+        program_ms_per_frame=_cuda_ms(lambda: prog(**args), 3) / F)
+    return nums, args, [FP.build_v3_frame(fg, c) for c in cols_list], prog
+
+
+def _phase6(dev):
+    """The c2 irreversible path; returns (the ict_writeframe entry of the
+    kernels line without its launches, the HT cleanup kernels' check at
+    this path's lanes, {path: (launch counts, frames)} of the float
+    decode_batch and of the integer decode_stream)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2025)
+    streams = _c2_streams(rng)
+    print(f"phase 6 encode (port encoder): {len(streams)} frames "
+          f"{C2_W}x{C2_H} 8-bit RGB 9/7+ICT (2 natural, 2 smooth), "
+          f"{sum(map(len, streams)) / len(streams) / 1e6:.2f} MB/frame avg,"
+          f" {time.perf_counter() - t0:.1f} s")
+
+    dec_f = Decoder(device="cuda", bitexact=False)
+    dec_i = Decoder(device="cuda", bitexact=True)
+    modes, lanes = {}, None
+    for name, dec, transform in (("float", dec_f, DWT97),
+                                 ("int", dec_i, DWT97_INT)):
+        m, args, fcs, prog = _ict_check(dec, streams, transform)
+        modes[name] = m
+        print(f"phase 6   ict {name} mode == ict_writeframe_ref + pack on "
+              f"{m['frames']} frames of 3 x {C2_H}x{C2_W} {m['dtype']} "
+              f"planes, one launch: kernel {m['ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.3f} ms, bound {m['bound_ms']:.4f} ms "
+              f"(bytes), {100 * m['bound_ms'] / m['ms']:.1f}% of bound; "
+              f"one frame (== plain too): {m['ms_one_frame']:.4f} ms, "
+              f"{100 * m['bound_ms_one_frame'] / m['ms_one_frame']:.1f}% "
+              f"of bound; device program {m['program_ms_per_frame']:.2f} "
+              f"ms/frame (F={m['frames']})")
+        if lanes is None:      # the lanes are the same in both modes
+            lanes = (args, fcs, prog.qw, prog.qh, prog.ms_class)
+        del args
+
+    # the HT cleanup kernels at this path's lanes: F frames in one launch
+    c2 = _cleanup_check(*lanes)
+    ln = c2["lanes"]
+    print(f"phase 6 HT cleanup on the {len(streams)} frames' {ln['N']} lanes "
+          f"(qw=qh={lanes[2]}, ms_class={lanes[4]}, W ms/mel/vlc = "
+          f"{'/'.join(map(str, ln['W']))}; segment bytes MagSgn "
+          f"{ln['ms_bytes']}, MEL+VLC {ln['melvlc_bytes']})")
+    _print_cleanup("phase 6", c2)
+    del lanes
+
+    # the main path: decode_batch of the four frames, float 9/7
+    _reset_counts()
+    frames = dec_f.decode_batch(streams)
+    batch_counts = _counts()
+    want = {"ht_vlc_pass": 1, "ht_magsgn_pass": 1, "rct_writeframe": 0,
+            "ict_writeframe": 1}
+    if batch_counts != want:
+        raise RuntimeError(f"decode_batch launches {batch_counts}, "
+                           f"expected {want}")
+    if dec_f.v3_frames != len(streams) or dec_f.host_frames:
+        raise RuntimeError(f"decode_batch: v3 frames {dec_f.v3_frames}, "
+                           f"host frames {dec_f.host_frames}")
+    diffs = [_host_diff(fr, s, False) for fr, s in zip(frames, streams)]
+    if any(d > 1 for d, _n in diffs) or frames[0].fmt.name != "rgb24":
+        raise RuntimeError(f"decode_batch vs host float oracle: {diffs}")
+    print(f"phase 6 decode_batch (bitexact=False): {len(frames)} rgb24 "
+          f"frames in one program, launches {batch_counts}; vs the host "
+          "float oracle (max abs diff, samples off): "
+          + ", ".join(f"({d}, {n})" for d, n in diffs))
+
+    # the integer path, frame by frame: byte-equal to the host oracle
+    _reset_counts()
+    frames = list(dec_i.decode_stream(streams))
+    int_counts = _counts()
+    want = {"ht_vlc_pass": len(streams), "ht_magsgn_pass": len(streams),
+            "rct_writeframe": 0, "ict_writeframe": len(streams)}
+    if dec_i.v3_frames != len(streams) or dec_i.host_frames \
+            or int_counts != want:
+        raise RuntimeError(f"decode_stream (bitexact): v3 frames "
+                           f"{dec_i.v3_frames}, host frames "
+                           f"{dec_i.host_frames}, launches {int_counts}")
+    diffs = [_host_diff(fr, s, True) for fr, s in zip(frames, streams)]
+    if any(d for d, _n in diffs):
+        raise RuntimeError(f"decode_stream (bitexact) vs host: {diffs}")
+    # the flat-DWT fallback: a 96x128 frame whose lowest level is 8x6
+    small = encode_frame_htj2k(
+        _rgb(_natural(rng, 96, 128, 255, np.uint8)), pred=0, mct=True,
+        nreslevels=6, log2_cblk_width=5, log2_cblk_height=5)
+    flat_diff = _host_diff(dec_i.decode(small), small, True)
+    fg = dec_i._fast_geom(parse_codestream(small, bitexact=True))
+    if flat_diff[0] or [p.band_direct for p in fg.v3_progs.values()] \
+            != [False]:
+        raise RuntimeError(f"flat-DWT fallback stream: {flat_diff}")
+    print(f"phase 6 decode_stream (bitexact=True): {len(frames)} frames "
+          f"byte-equal to the host integer oracle, all via the v3 device "
+          f"program, launches {int_counts}; flat-DWT fallback 96x128 "
+          "stream byte-equal too")
+
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec_f.decode_batch(streams)
+        times.append((time.perf_counter() - t0) * 1e3 / len(streams))
+    print(f"phase 6 one batch of {len(streams)}, ms: "
+          + _laps(dec_f, streams, False, dev))
+    res = dec_f.bench_resident(streams, n_it=10, reps=3)
+    if res["frames_merged"] != len(streams):
+        raise RuntimeError(f"bench_resident: {res}")
+    print(f"phase 6 decode_batch end to end: median "
+          f"{statistics.median(times):.2f} ms/frame over {REPS} batches of "
+          f"{len(streams)} ({', '.join(f'{t:.2f}' for t in times)}); "
+          f"bench_resident F={res['frames_merged']}: "
+          f"{res['ms_per_frame']:.3f} ms/frame ({res['fps']:.1f} fps)")
+
+    f = modes["float"]
+    entry = dict(name="ict_writeframe", route="cuda",
+                 source="ffmpeg_ht_tpu_torch/csrc/ict_writeframe.cu",
+                 replaces="ffmpeg_ht_tpu/models/assembly.py:390",
+                 max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+                 ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                 modes=modes)
+    paths = {"c2_decode_batch": (batch_counts, len(streams)),
+             "c2_decode_stream_int": (int_counts, len(streams))}
+    return entry, c2, paths
 
 
 def main() -> int:
@@ -160,94 +544,18 @@ def main() -> int:
     prep_ms = (time.perf_counter() - t0) * 1e3
     args = {k: to_torch(v, dev) for k, v in args_np.items()}
     qw, qh = plan.bw // 2, plan.bh // 2
-    dev_lanes = fc["qws"] > 0
-    mb = int(fc["maxbp"][dev_lanes].max())
+    mb = int(fc["maxbp"][fc["qws"] > 0].max())
     msc = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-    (msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs) = (
-        args[k] for k in ("msw", "melw", "vlcw", "pLSB", "maxbp", "ms_lim",
-                          "mel_lim", "qws", "qhs"))
-    N = msw.shape[0]
-    vlc_in = (melw, vlcw, mel_lim, qws, qhs, qw, qh)
-    u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
-
-    rec_k = ht_scan.ht_vlc_pass(*vlc_in)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    rec_r = ht_scan.vlc_pass_ref(*vlc_in)
-    torch.cuda.synchronize()
-    vlc_plain_ms = (time.perf_counter() - t1) * 1e3
-    vlc_err = int((rec_k.to(torch.int64) - rec_r.to(torch.int64))
-                  .abs().max())
-    if vlc_err:
-        raise RuntimeError(f"VLC pass differs from vlc_pass_ref (max abs "
-                           f"err {vlc_err})")
-
-    ms_in = (msw, pLSB, maxbp, ms_lim, qws, qhs, qw, qh, msc)
-    mu_k, sig_k, ok_k = ht_scan.ht_magsgn_pass(rec_r, *ms_in)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    mu_r, sig_r, ok_r = ht_scan.magsgn_pass_ref(rec_r, *ms_in)
-    torch.cuda.synchronize()
-    magsgn_plain_ms = (time.perf_counter() - t1) * 1e3
-    if not torch.equal(ok_k, ok_r) or not bool(ok_r.all()):
-        raise RuntimeError("MagSgn pass: ok flags differ from "
-                           "magsgn_pass_ref or a lane failed")
-    magsgn_err = max(int((u32(mu_k) - u32(mu_r)).abs().max()),
-                     int((sig_k - sig_r).abs().max()))
-    if magsgn_err:
-        raise RuntimeError(f"MagSgn pass differs from magsgn_pass_ref "
-                           f"(max abs err {magsgn_err})")
-
-    lane_args = (msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs)
-    mu_k, sig_k, ok_k = ht_scan.decode_cleanup_scan_dims(*lane_args, qw, qh,
-                                                         msc)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    mu_r, sig_r, ok_r = ht_scan.cleanup_ref(*lane_args, qw, qh, msc)
-    torch.cuda.synchronize()
-    cleanup_plain_ms = (time.perf_counter() - t1) * 1e3
-    if not torch.equal(ok_k, ok_r) or not bool(ok_r.all()):
-        raise RuntimeError("cleanup pair: ok flags differ from cleanup_ref"
-                           " or a lane failed")
-    cleanup_err = max(int((u32(mu_k) - u32(mu_r)).abs().max()),
-                      int((sig_k - sig_r).abs().max()))
-    if cleanup_err:
-        raise RuntimeError(f"cleanup pair differs from cleanup_ref "
-                           f"(max abs err {cleanup_err})")
-
-    vlc_ms = _cuda_ms(lambda: ht_scan.ht_vlc_pass(*vlc_in), 10)
-    magsgn_ms = _cuda_ms(lambda: ht_scan.ht_magsgn_pass(rec_r, *ms_in), 10)
-    cleanup_ms = _cuda_ms(lambda: ht_scan.decode_cleanup_scan_dims(
-        *lane_args, qw, qh, msc), 10)
-    # bytes these inputs need: the segment bytes of the decoded lanes
-    # (MagSgn: [0, pcup); MEL and VLC: [pcup, lcup)), the per-lane
-    # vectors, the records, and mu + sig + ok
-    lc = fc["lcups"][dev_lanes].astype(np.int64)
-    pc = fc["pcups"][dev_lanes].astype(np.int64)
-    ms_bytes, melvlc_bytes = int(pc.sum()), int((lc - pc).sum())
-    rec_bytes = 4 * N * qh * qw
-    out_bytes = 4 * mu_k.numel() + 4 * sig_k.numel() + N
-    bound = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3
-    vlc_bound = bound(melvlc_bytes + 12 * N + 8192 + rec_bytes)
-    magsgn_bound = bound(rec_bytes + ms_bytes + 20 * N + out_bytes)
-    cleanup_bound = bound(ms_bytes + melvlc_bytes + 32 * N + 8192
-                          + out_bytes)
-    print(f"phase 4 HT cleanup on {N} lanes (qw=qh={qw}, ms_class={msc}, "
-          f"W ms/mel/vlc = {msw.shape[1]}/{melw.shape[1]}/{vlcw.shape[1]}"
-          f"; segment bytes MagSgn {ms_bytes}, MEL+VLC {melvlc_bytes}; "
+    c3 = _cleanup_check(args, [fc], qw, qh, msc)
+    ln = c3["lanes"]
+    print(f"phase 4 HT cleanup on {ln['N']} lanes (qw=qh={qw}, ms_class="
+          f"{msc}, W ms/mel/vlc = {'/'.join(map(str, ln['W']))}; segment "
+          f"bytes MagSgn {ln['ms_bytes']}, MEL+VLC {ln['melvlc_bytes']}; "
           f"host prep {prep_ms:.0f} ms)")
-    for name, ms, plain, bnd in (
-            ("VLC pass == vlc_pass_ref (records)", vlc_ms, vlc_plain_ms,
-             vlc_bound),
-            ("MagSgn pass == magsgn_pass_ref (same records)", magsgn_ms,
-             magsgn_plain_ms, magsgn_bound),
-            ("pair == cleanup_ref", cleanup_ms, cleanup_plain_ms,
-             cleanup_bound)):
-        print(f"phase 4   {name}: kernel {ms:.4f} ms, plain {plain:.1f} ms"
-              f", bound {bnd:.4f} ms (bytes), {100 * bnd / ms:.1f}% of "
-              "bound")
-    print(f"phase 4   pair {cleanup_ms:.4f} ms vs {ONE_THREAD_CLEANUP_MS} ms "
-          "for the earlier one-thread-per-codeblock kernel")
+    _print_cleanup("phase 4", c3)
+    print(f"phase 4   pair {c3['pair']['ms']:.4f} ms vs "
+          f"{ONE_THREAD_CLEANUP_MS} ms for the earlier "
+          "one-thread-per-codeblock kernel")
 
     prog = V3Program(plan, fg.geom.key(), qw=qw, qh=qh, ms_class=msc,
                      n_pad=fg.ncblks, frames=1,
@@ -274,27 +582,23 @@ def main() -> int:
         raise RuntimeError(f"RCT kernel differs from its plain version "
                            f"(max abs err {rct_err})")
     rct_ms = _cuda_ms(lambda: mct_cuda.rct_writeframe(
-        y0, y1, y2, DEPTH, out=packed_k), 20)
+        y0, y1, y2, DEPTH, out=packed_k), 20, True)
     rct_plain_ms = _cuda_ms(rct_plain, 20)
-    rct_bound = bound(3 * npx * 4 + packed_k.numel() * 2)
+    rct_bound = _bound(3 * npx * 4 + packed_k.numel() * 2)
     program_ms = _cuda_ms(lambda: prog(**args), 5)
     print(f"phase 4 rct kernel == rct_writeframe_ref + pack on 3 x {H}x{W} "
           f"planes (min {int(y1.min())}, max {int(y1.max())} chroma): "
           f"kernel {rct_ms:.4f} ms, plain {rct_plain_ms:.3f} ms, bound "
           f"{rct_bound:.4f} ms (bytes), {100 * rct_bound / rct_ms:.1f}% of "
           f"bound; whole device program {program_ms:.2f} ms/frame")
-    del outs, y0, y1, y2, ref, got, mu_r, sig_r, mu_k, sig_k, rec_k, rec_r
+    del outs, y0, y1, y2, ref, got, args
 
     # ---- phase 5: the main path through the public entry point
     dec = Decoder(device="cuda")
     order = list(streams)
-    ht_scan.ht_vlc_pass.launches = 0
-    ht_scan.ht_magsgn_pass.launches = 0
-    mct_cuda.rct_writeframe.launches = 0
+    _reset_counts()
     frames = list(dec.decode_stream([streams[k] for k in order]))
-    launches = {"ht_vlc_pass": ht_scan.ht_vlc_pass.launches,
-                "ht_magsgn_pass": ht_scan.ht_magsgn_pass.launches,
-                "rct_writeframe": mct_cuda.rct_writeframe.launches}
+    launches = _counts()
     for k, fr in zip(order, frames):
         want = sources[k].astype(np.uint16) << (16 - DEPTH)
         if fr.fmt.name != "rgb48le" or fr.planes[0].shape != (H, 3 * W) \
@@ -304,9 +608,10 @@ def main() -> int:
     if dec.v3_frames != len(order) or dec.host_frames:
         raise RuntimeError(f"v3 frames {dec.v3_frames}, host frames "
                            f"{dec.host_frames}")
-    if any(n != len(order) for n in launches.values()):
+    if any(n != (0 if k == "ict_writeframe" else len(order))
+           for k, n in launches.items()):
         raise RuntimeError(f"launches {launches}, expected one per frame "
-                           f"({len(order)})")
+                           f"({len(order)}) and no ICT")
     times = []
     for _ in range(REPS):
         torch.cuda.synchronize()
@@ -322,57 +627,47 @@ def main() -> int:
 
     # where one frame's time goes: the calls Decoder.decode makes, timed
     # one by one with a device sync after each device step
-    laps = {}
-    hdr = parse_codestream(streams["natural"], bitexact=True)
-    fg = dec._fast_geom(hdr)
-    (prog,) = fg.v3_progs.values()
-    val = None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for name, step in (
-            ("parse", lambda _: parse_codestream(streams["natural"],
-                                                 bitexact=True)),
-            ("t2_native", lambda _: FP.parse_frame_flat(hdr, fg)),
-            ("build_v3_frame", lambda cols: FP.build_v3_frame(fg, cols)),
-            ("stream_prep", lambda fc: finish_v3_numpy(fg, [fc],
-                                                       fg.geom.total)[0]),
-            ("upload", lambda a: {k: to_torch(v, dev) for k, v in a.items()}),
-            ("device_program", lambda a: prog(**a)),
-            ("fetch", lambda p: p.cpu()),
-            ("write_frame", lambda p: dec._finish(hdr, fg.tiles, fg.geom,
-                                                  p))):
-        val = step(val)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        laps[name] = (t1 - t0) * 1e3
-        t0 = t1
-    total = sum(laps.values())
-    print("phase 5 one natural frame, ms: " + " | ".join(
-        f"{k} {v:.1f}" for k, v in laps.items())
-        + f" | total {total:.1f}; device program "
-        f"{100 * laps['device_program'] / total:.1f}% of it")
+    print("phase 5 one natural frame, ms: "
+          + _laps(dec, [streams["natural"]], True, dev))
+
+    # ---- phase 6: the c2 irreversible path
+    ict_entry, c2, c2_paths = _phase6(dev)
 
     cleanup_src = "ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192"
     kernels = [
         dict(name="ht_vlc_pass", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/ht_vlc_pass.cu",
-             replaces=cleanup_src, max_abs_err=vlc_err, ms=vlc_ms,
-             plain_ms=vlc_plain_ms, bound_ms=vlc_bound),
+             replaces=cleanup_src, **c3["vlc"],
+             c2_decode_batch_shapes=c2["vlc"]),
         dict(name="ht_magsgn_pass", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/ht_magsgn_pass.cu",
-             replaces=cleanup_src, max_abs_err=magsgn_err, ms=magsgn_ms,
-             plain_ms=magsgn_plain_ms, bound_ms=magsgn_bound),
+             replaces=cleanup_src, **c3["magsgn"],
+             c2_decode_batch_shapes=c2["magsgn"]),
         dict(name="rct_writeframe", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/rct_writeframe.cu",
              replaces="ffmpeg_ht_tpu/ops/mct_pallas.py:36",
              max_abs_err=rct_err, ms=rct_ms, plain_ms=rct_plain_ms,
              bound_ms=rct_bound),
+        ict_entry,
     ]
+    # every path's run is read between a reset and the next; `launches`
+    # is the count on the kernel's main path, the path whose shapes its
+    # ms and bound_ms were measured at: c3 decode_stream (phase 5) for the
+    # kernels of the 5/3 slice, c2 decode_batch (phase 6) for ICT
+    paths = {"c3_decode_stream": (launches, len(order)), **c2_paths}
     for k in kernels:
-        # no single PyTorch call computes an HT cleanup pass, nor RCT with
-        # DC shift, clip and the narrow pack
-        k.update(launches=launches[k["name"]],
-                 launches_per_frame=launches[k["name"]] / len(order),
+        main_path = "c2_decode_batch" if k["name"] == "ict_writeframe" \
+            else "c3_decode_stream"
+        n = {p: c[k["name"]] for p, (c, _f) in paths.items()}
+        per_frame = {p: n[p] / f for p, (_c, f) in paths.items()}
+        k["max_abs_err"] = max(k["max_abs_err"], k.get(
+            "c2_decode_batch_shapes", {}).get("max_abs_err", 0))
+        # no single PyTorch call computes an HT cleanup pass, nor RCT or
+        # ICT with DC shift, clip and the narrow pack
+        k.update(main_path=main_path, launches=n[main_path],
+                 launches_per_frame=per_frame[main_path],
+                 launches_by_path=n, launches_per_frame_by_path=per_frame,
+                 frames_by_path={p: f for p, (_c, f) in paths.items()},
                  bound_by="bytes", library_ms=None)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,22 +4,26 @@
 Per call, for F frames of one geometry:
 
   1. one HT cleanup launch over every codeblock lane (ops/ht_scan);
-  2. reversible dequant of the mu words (jpeg2000dec.c:2119-2151);
+  2. dequant of the mu words (jpeg2000dec.c:2098-2181): reversible (5/3),
+     integer 9/7 (Q16 ``scale97``, int64 products) or float 9/7
+     (``fscale``, float32 lane rasters);
   3. the sparse prefill scatter of host-decoded lanes, into a flat buffer
      with one trailing trash slot that the pad entries address;
   4. the band mosaics: slice/reshape/permute/cat of the lane rasters
      (``AssemblyPlan`` from ``build_plan`` below);
-  5. the band-direct inverse 5/3 DWT (ops/dwt_torch);
-  6. RCT + DC shift + clip written straight into the packed output
-     (ops/mct_cuda), or DC shift + clip for planes without MCT;
+  5. the inverse DWT (ops/dwt_torch): band-direct when every level of
+     every plane is at least 8x8, else the quadrant pyramid is composed
+     (``_compose_plane``) and takes the flat fallback;
+  6. RCT (5/3, a launch per frame) or ICT (9/7, one launch for the F
+     frames) + DC shift + clip written straight into the packed output
+     (ops/mct_cuda), or ``rint`` (float) + DC shift + clip for planes
+     without MCT;
   7. one packed uint8 / uint16 buffer (uint16 held as int16 bits) whose
      last element is the all-lanes ok flag.
 
 The assembly plan (``PrecPlan`` .. ``AssemblyPlan``, ``build_plan``) is
 copied verbatim from the reference module: numpy only, static per
-codestream geometry. Only the reversible 5/3 band-direct case is
-ported; the others raise NotImplementedError naming their ROADMAP.md
-item.
+codestream geometry. Samples wider than 16 bits raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ import torch
 
 from ffmpeg_ht_tpu_torch.codestream import markers as mk
 from ffmpeg_ht_tpu_torch.ops.dwt_torch import (dwt_decode_bands,
+                                               dwt_decode_flat,
                                                dwt_poly_capable)
 from ffmpeg_ht_tpu_torch.ops.ht_scan import decode_cleanup_scan_dims
-from ffmpeg_ht_tpu_torch.ops.mct_cuda import narrow, rct_writeframe
+from ffmpeg_ht_tpu_torch.ops.mct_cuda import (dc_shift_clip, ict_writeframe,
+                                              narrow, rct_writeframe)
 
 
 @dataclass(frozen=True)
@@ -212,6 +218,19 @@ def _mosaic_band(ras, bp: BandPlan, lane_off: int):
     return row_rects[0] if len(row_rects) == 1 else torch.cat(row_rects, 0)
 
 
+def _compose_plane(ras, plane: PlanePlan, lane_off: int):
+    """The quadrant pyramid of one plane from its band mosaics
+    (assembly.py:224-236), for the flat-DWT fallback."""
+    ll, lvls = plane.levels
+    p = _mosaic_band(ras, ll, lane_off)
+    for (hl, lhb, hh) in lvls:
+        top = torch.cat([p, _mosaic_band(ras, hl, lane_off)], 1)
+        bot = torch.cat([_mosaic_band(ras, lhb, lane_off),
+                         _mosaic_band(ras, hh, lane_off)], 1)
+        p = torch.cat([top, bot], 0)
+    return p
+
+
 class V3Program:
     """The fused decode program for one geometry and frame count.
 
@@ -227,25 +246,19 @@ class V3Program:
                  no_istep: bool = False):
         (planes, borders, ndecs, mct_flags, tci, cbps, total,
          transform) = geom_key
-        if transform != mk.DWT53:
-            raise NotImplementedError(
-                "irreversible 9/7 streams (DWT97 / DWT97_INT) are not "
-                "ported yet: ROADMAP.md module 4, the 9/7-int and "
-                "9/7-float tail")
-        if not all(nd == 0 or dwt_poly_capable(
-                [[b[0][0], b[0][1]], [b[1][0], b[1][1]]], nd)
-                for b, nd in zip(borders, ndecs)):
-            raise NotImplementedError(
-                "a DWT level below 8x8 needs the flat-DWT fallback "
-                "(band_direct false), not ported yet: ROADMAP.md, the "
-                "flat-DWT fallback")
         if cbps > 16:
             raise NotImplementedError(
                 f"{cbps}-bit samples do not fit the uint16 packed output")
+        # band-direct inverse DWT when every level of every plane is at
+        # least 8x8 (assembly.py:283-286); else the flat fallback
+        self.band_direct = all(
+            nd == 0 or dwt_poly_capable(
+                [[b[0][0], b[0][1]], [b[1][0], b[1][1]]], nd)
+            for b, nd in zip(borders, ndecs))
         self.plan = plan
         self.planes, self.borders, self.ndecs = planes, borders, ndecs
         self.mct_flags, self.tci = mct_flags, tci
-        self.cbps, self.total = cbps, total
+        self.cbps, self.total, self.transform = cbps, total, transform
         self.qw, self.qh, self.ms_class = qw, qh, ms_class
         self.n_pad, self.frames, self.no_istep = n_pad, frames, no_istep
         self.out_dtype = torch.uint8 if cbps <= 8 else torch.int16
@@ -262,14 +275,7 @@ class V3Program:
             msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
             self.qw, self.qh, self.ms_class)
 
-        # reversible dequant on the int32 bits of the uint32 mu words
-        # (bit 31 sign; every step stays non-negative int32)
-        neg = mu < 0
-        m = (mu & 0x7FFFFFFF) >> (31 - magb)[:, None, None]
-        coef = torch.where(neg, -m, m)
-        if not self.no_istep:
-            st = istep[:, None, None]
-            coef = torch.where(st != 32768, (coef * st) >> 16, coef)
+        coef = self._dequant(mu, magb, istep, scale97, fscale)
 
         # host-decoded lanes: scatter into the lane rasters; pad entries
         # address the trailing trash slot, which is sliced off
@@ -282,44 +288,84 @@ class V3Program:
             off = f * self.n_pad
             for plane_p, border, ndec in zip(self.plan.planes, self.borders,
                                              self.ndecs):
+                b = [[border[0][0], border[0][1]],
+                     [border[1][0], border[1][1]]]
+                if not self.band_direct:
+                    plane = _compose_plane(coef, plane_p, off)
+                    if ndec > 0:
+                        plane = dwt_decode_flat(plane, b, ndec,
+                                                self.transform)
+                    outs.append(plane)
+                    continue
                 ll, lvls = plane_p.levels
                 plane = _mosaic_band(coef, ll, off)
                 if ndec > 0:
                     bands = [tuple(_mosaic_band(coef, bb, off) for bb in lvl)
                              for lvl in lvls]
-                    b = [[border[0][0], border[0][1]],
-                         [border[1][0], border[1][1]]]
-                    plane = dwt_decode_bands(plane, bands, b, ndec, mk.DWT53)
+                    plane = dwt_decode_bands(plane, bands, b, ndec,
+                                             self.transform)
                 outs.append(plane)
         return outs, ok
 
-    def pack(self, outs, ok):
-        """Stages 6-7: MCT / DC shift / clip into the packed buffer."""
-        shift, maxval = 1 << (self.cbps - 1), (1 << self.cbps) - 1
-        packed = torch.empty(self.frames * self.total + 1,
-                             dtype=self.out_dtype, device=ok.device)
-        pos = 0
+    def _dequant(self, mu, magb, istep, scale97, fscale):
+        """Lane rasters of coefficients from the int32 bits of the uint32
+        mu words (bit 31 sign), as assembly.py:327-349 computes them."""
+        neg = mu < 0
+        mag = mu & 0x7FFFFFFF
+        if self.transform == mk.DWT97:
+            return torch.where(neg, -mag, mag).to(torch.float32) \
+                * fscale[:, None, None]
+        if self.transform == mk.DWT97_INT:
+            m = torch.where(neg, -mag, mag)
+            m = ((m + 32) >> 6).to(torch.int64)
+            prod = m * scale97[:, None, None].to(torch.int64)
+            coef = torch.where(prod > 0, (prod + (1 << 15)) >> 16,
+                               (prod + (1 << 15) - 1) >> 16)
+            return coef.to(torch.int32)
+        # reversible: every step stays non-negative int32
+        m = mag >> (31 - magb)[:, None, None]
+        coef = torch.where(neg, -m, m)
+        if not self.no_istep:
+            st = istep[:, None, None]
+            coef = torch.where(st != 32768, (coef * st) >> 16, coef)
+        return coef
 
-        def put(c):
-            nonlocal pos
-            c = torch.clamp(c + shift, 0, maxval)
+    def pack(self, outs, ok):
+        """Stages 6-7: MCT / DC shift / clip into the packed buffer. Plane
+        i of frame f starts at f * total + its geometry offset; the ICT of
+        a tile runs for every frame in one call."""
+        total, F = self.total, self.frames
+        packed = torch.empty(F * total + 1, dtype=self.out_dtype,
+                             device=ok.device)
+
+        def put(c, pos):
+            c = dc_shift_clip(c, self.cbps)
             packed[pos:pos + c.numel()] = narrow(c, self.out_dtype) \
                 .reshape(-1)
-            pos += c.numel()
 
         nplanes = len(self.planes)
-        for f in range(self.frames):
-            for tileno, idxs in enumerate(self.tci):
-                comps = [outs[f * nplanes + i] for i in idxs]
-                if self.mct_flags[tileno] and len(comps) >= 3 and \
-                        comps[0].shape == comps[1].shape == comps[2].shape:
-                    n3 = 3 * comps[0].numel()
-                    rct_writeframe(*(c.contiguous() for c in comps[:3]),
-                                   self.cbps, out=packed[pos:pos + n3])
-                    pos += n3
-                    comps = comps[3:]
-                for c in comps:
-                    put(c)
+        for tileno, idxs in enumerate(self.tci):
+            first = [outs[i] for i in idxs[:3]]
+            rest = idxs
+            if self.mct_flags[tileno] and len(idxs) >= 3 and \
+                    first[0].shape == first[1].shape == first[2].shape:
+                base, n = self.planes[idxs[0]][0], first[0].numel()
+                ys = [tuple(outs[f * nplanes + i].contiguous()
+                            for i in idxs[:3]) for f in range(F)]
+                if self.transform == mk.DWT53:
+                    for f, y in enumerate(ys):
+                        pos = f * total + base
+                        rct_writeframe(*y, self.cbps,
+                                       out=packed[pos:pos + 3 * n])
+                else:
+                    ict_writeframe(ys, self.cbps, self.transform,
+                                   out=packed[base:(F - 1) * total + base
+                                              + 3 * n],
+                                   frame_stride=total)
+                rest = idxs[3:]
+            for f in range(F):
+                for i in rest:
+                    put(outs[f * nplanes + i], f * total + self.planes[i][0])
         # ok flag: inert and pad lanes pass trivially
-        packed[pos:].copy_(ok.all().reshape(1))
+        packed[F * total:].copy_(ok.all().reshape(1))
         return packed

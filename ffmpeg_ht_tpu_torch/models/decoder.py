@@ -5,7 +5,9 @@ The host tier is the port's own copy of the reference's: codestream
 parse, the flat fast lane (native T2 parse, lane building, assembly
 plan), the host oracle and the frame writer. The device program is
 ``models/assembly.V3Program``: the v3 fused fast lane of the reference
-package, for HTONLY streams with the reversible 5/3 transform.
+package, for HTONLY streams with any of the three transforms (reversible
+5/3, integer 9/7 with ``bitexact=True``, float 9/7 with
+``bitexact=False``), band-direct or through the flat-DWT fallback.
 
 Routing follows the reference ``Decoder.decode``:
 
@@ -15,13 +17,18 @@ Routing follows the reference ``Decoder.decode``:
 - v3-eligible streams (``fast_profile``, an assembly plan, no refinement
   lanes, maxbp <= 25) run the V3Program on the device;
 - streams the reference decodes on its device by another route (the v2
-  bucketed path, maxbp > 25, 9/7, the flat-DWT fallback) raise
-  NotImplementedError naming their ROADMAP.md item. They are never
-  decoded on the host in their place.
+  bucketed path, maxbp > 25) raise NotImplementedError naming their
+  ROADMAP.md item. They are never decoded on the host in their place.
+
+``decode_batch`` runs same-geometry frames as one F-frame program on one
+device; ``bench_resident`` times that program with its inputs already on
+the device. Not ported: ``reduction_factor``, ``max_layers``, the wire
+pack and sharding ``decode_batch`` over several devices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
@@ -43,7 +50,8 @@ from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
 _V2_PATH = ("the stream needs the v2 bucketed device path (refinement "
             "passes, unaligned band origins or a non-native parse), not "
-            "ported yet: ROADMAP.md, the v2 path with ht_refine")
+            "ported yet: ROADMAP.md, What remains item 1, the v2 path "
+            "with ht_refine")
 _MAX_GEOMS = 32
 _DEVICE_TRANSFORMS = (mk.DWT53, mk.DWT97_INT, mk.DWT97)
 
@@ -84,13 +92,17 @@ class Decoder:
     """HTJ2K decoder whose device program runs on `device`.
 
     `device` is required to exist: "cuda" without a usable card raises,
-    and nothing falls back to the CPU. decode(data) -> DecodedFrame.
-    Streams are decoded as the reference ``Decoder()`` decodes them with
-    its defaults: bitexact, at full resolution.
+    and nothing falls back to the CPU. decode(data) -> DecodedFrame, at
+    full resolution. `bitexact` picks the irreversible path as in the
+    reference ``Decoder(bitexact=...)``: True decodes 9/7 streams with the
+    integer 9/7 (byte-identical to ``ffmpeg -flags +bitexact``), False
+    with the float 9/7 (within 1 LSB). The parse records the choice in
+    each codestream's transform, which the geometry cache key holds.
     """
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", bitexact: bool = True):
         self.device = resolve_device(device)
+        self.bitexact = bitexact
         self._geoms = {}        # geometry fingerprint -> FlatGeometry
         self.v3_frames = 0      # frames decoded by the V3Program
         self.host_frames = 0    # frames routed to the host oracle
@@ -107,7 +119,7 @@ class Decoder:
             pending = [dec.decode_async(s) for s in streams]
             frames = [p() for p in pending]
         """
-        hdr = parse_codestream(data, bitexact=True)
+        hdr = parse_codestream(data, bitexact=self.bitexact)
         fast = self._fast_launch(hdr)
         if fast is not None:
             fg, packed = fast
@@ -120,7 +132,7 @@ class Decoder:
             decode_tile_packets(hdr, tileno, tile, 0)
             tiles.append(tile)
         if not _supported_on_device(hdr, tiles):
-            frame = host_decoder.decode_frame(data, bitexact=True)
+            frame = host_decoder.decode_frame(data, bitexact=self.bitexact)
             self.host_frames += 1
             return lambda: frame
         raise NotImplementedError(_V2_PATH)
@@ -147,6 +159,78 @@ class Decoder:
             self._geoms[key] = fg
         return fg
 
+    def decode_batch(self, streams) -> List[DecodedFrame]:
+        """Decode many frames; same-geometry fast-profile streams run as
+        ONE V3Program of F frames (the frame axis concatenates into the
+        lane axis: one launch of each kernel for the batch). Anything else
+        decodes stream by stream through ``decode`` (decoder.py:758-770),
+        and so still raises for streams that need the v2 path."""
+        hdrs = [parse_codestream(d, bitexact=self.bitexact) for d in streams]
+        fast = self._fast_batch(hdrs)
+        if fast is not None:
+            return fast
+        return [self.decode(d) for d in streams]
+
+    def _batch_geom(self, hdrs):
+        """The FlatGeometry that fast-profile streams of one geometry
+        share, or None."""
+        if not hdrs or not all(FP.fast_profile(h) for h in hdrs) \
+                or len({FP.geometry_fingerprint(h) for h in hdrs}) != 1:
+            return None
+        return self._fast_geom(hdrs[0])
+
+    def _fast_batch(self, hdrs):
+        """decode_batch's one-program lane (decoder.py:1128-1174), or None
+        when the streams leave the fast profile or one geometry."""
+        fg = self._batch_geom(hdrs)
+        if fg is None:
+            return None
+        cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs]
+        if any(c is None for c in cols_list):
+            return None
+        prog, args = self._v3_program(fg, cols_list)
+        host = self._start_fetch(prog(**args))()
+        self.v3_frames += len(hdrs)
+        return self._split_frames(hdrs, fg.tiles, fg.geom, host)
+
+    def bench_resident(self, streams, n_it: int = 10, reps: int = 3):
+        """Device-resident decode rate for same-geometry streams
+        (decoder.py:985-1052).
+
+        Stages the frames' lane arrays on the device once, builds ONE
+        V3Program over all F frames, then runs `reps` x `n_it` programs
+        back to back, synchronising once per repetition: the rate the
+        device sustains without the host parse and the output fetch.
+        Returns {"fps", "ms_per_frame", "frames_merged"} for the best
+        repetition; raises ValueError when the streams leave the fused
+        fast lane."""
+        hdrs = [parse_codestream(s, bitexact=self.bitexact)
+                for s in streams]
+        fg = self._batch_geom(hdrs)
+        cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs] if fg \
+            else [None]
+        if any(c is None for c in cols_list):
+            raise ValueError("streams not v3-capable (fast profile, one "
+                             "shared geometry, native parse)")
+        try:
+            prog, args = self._v3_program(fg, cols_list)
+        except NotImplementedError as e:
+            raise ValueError(f"streams not v3-capable: {e}") from e
+        sync = torch.cuda.synchronize if self.device.type == "cuda" \
+            else (lambda: None)
+        prog(**args)                                  # warm-up
+        sync()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(n_it):
+                prog(**args)
+            sync()
+            best = min(best, (time.perf_counter() - t0) / n_it)
+        F = len(hdrs)
+        return {"fps": F / best, "ms_per_frame": best * 1e3 / F,
+                "frames_merged": F}
+
     def _fast_launch(self, hdr):
         """(fg, packed) for a fast-profile stream, None when the stream
         leaves the flat fast lane (the object path decides then)."""
@@ -156,10 +240,12 @@ class Decoder:
         cols = FP.parse_frame_flat(hdr, fg)
         if cols is None:
             return None
-        return fg, self._v3_launch(fg, [cols])
+        prog, args = self._v3_program(fg, [cols])
+        return fg, prog(**args)
 
-    def _v3_launch(self, fg, cols_list):
-        """Build the frames' lane arguments and run the V3Program."""
+    def _v3_program(self, fg, cols_list):
+        """(the cached V3Program for these frames, its arguments on the
+        device); raises NotImplementedError when they need the v2 path."""
         if fg.v3_plan is None:
             fg.v3_plan = ASM.build_plan(fg) or False
         if fg.v3_plan is False or fg.ncblks == 0:
@@ -178,7 +264,8 @@ class Decoder:
         if mb > 25:
             raise NotImplementedError(
                 "codeblocks with maxbp > 25 need the v2 path, not ported "
-                "yet: ROADMAP.md, the v2 path with ht_refine")
+                "yet: ROADMAP.md, What remains item 1, the v2 path with "
+                "ht_refine")
         ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
         args, F = finish_v3_numpy(fg, frames, fg.geom.total)
         # lossless frames: istep is uniformly the identity 32768
@@ -191,7 +278,7 @@ class Decoder:
                              ms_class=ms_class, n_pad=fg.ncblks, frames=F,
                              no_istep=no_istep)
             fg.v3_progs[key] = prog
-        return prog(**{k: to_torch(v, self.device) for k, v in args.items()})
+        return prog, {k: to_torch(v, self.device) for k, v in args.items()}
 
     def _start_fetch(self, packed):
         """Queue the device-to-host copy of the packed output behind the
@@ -209,17 +296,25 @@ class Decoder:
         return fetch
 
     def _finish(self, hdr, tiles, geom, packed) -> DecodedFrame:
+        return self._split_frames([hdr], tiles, geom, packed)[0]
+
+    def _split_frames(self, hdrs, tiles, geom, packed) -> List[DecodedFrame]:
+        """The packed output of len(hdrs) frames of one geometry ->
+        DecodedFrames; raises InvalidData when the ok flag is clear."""
         buf = packed.numpy()
         if buf.dtype == np.int16:
             buf = buf.view(np.uint16)
         if buf[-1] == 0:
             raise InvalidData("invalid HT codestream (U bound violated)")
-        outs = []
+        frames = []
         off = 0
-        for (_o, ph, pw) in geom.planes:
-            outs.append(buf[off:off + ph * pw].reshape(ph, pw))
-            off += ph * pw
-        return self._assemble_frame(hdr, tiles, outs)
+        for hdr in hdrs:
+            outs = []
+            for (_o, ph, pw) in geom.planes:
+                outs.append(buf[off:off + ph * pw].reshape(ph, pw))
+                off += ph * pw
+            frames.append(self._assemble_frame(hdr, tiles, outs))
+        return frames
 
     def _assemble_frame(self, hdr, tiles, outs) -> DecodedFrame:
         """write_frame semantics on device output (host side)."""

@@ -2,12 +2,13 @@
 
 Every ``csrc/*.cu`` file exposes a plain C entry point (device pointers,
 sizes, the CUDA stream; returns ``cudaGetLastError()``). At first use the
-sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library, ``build/ffmpeg_ht_tpu_torch/libhtkernels.so`` under the
-repository root, which is loaded with ``ctypes``. No PyTorch header is
-included, so a build takes seconds rather than minutes. The library is
-rebuilt when any source is newer than it. A missing ``nvcc`` or a failed
-compile raises: there is no fallback.
+sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process per
+source, all started together, and linked into one shared library,
+``build/ffmpeg_ht_tpu_torch/libhtkernels.so`` under the repository root,
+which is loaded with ``ctypes``. No PyTorch header is included, so a
+build takes seconds rather than minutes. The library is rebuilt when any
+source is newer than it. A missing ``nvcc`` or a failed compile raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "ffmpeg_ht_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libhtkernels.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,9 @@ _SIGNATURES = {
                               _I, _I, _I, _I,            # N, qw, qh, class
                               _P, _P, _P, _P],           # mu, sig, ok, stream
     "rct_writeframe_launch": [_P, _P, _P, _I64, _I, _P, _I, _P],
+    "ict_writeframe_launch": [_P, _P, _P, _I,            # y0s..y2s, frames
+                              _I64, _I, _P, _I64,        # n, cbps, out, stride
+                              _I, _I, _P],               # kind, mode, stream
 }
 
 
@@ -84,19 +89,43 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in deps)
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise on the first failure. Returns
+    their joined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = "nvcc failed (exit %d):\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), out[-8000:])
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def _compile() -> str:
     srcs = _sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
-            res.returncode, " ".join(cmd), res.stderr[-8000:]))
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [os.path.join(BUILD_DIR, "%s.%d.o" % (
+        os.path.splitext(os.path.basename(s))[0], pid)) for s in srcs]
+    tmp = f"{LIB_PATH}.{pid}.tmp"
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                    for s, o in zip(srcs, objs)])
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, LIB_PATH)        # atomic: a concurrent loader never
-    return res.stdout + res.stderr   # sees a half-written library
+    return log                       # sees a half-written library
 
 
 def load() -> KernelLibrary:

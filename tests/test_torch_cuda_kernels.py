@@ -10,7 +10,10 @@ Integer kernels: the match is exact (the VLC pass's records on every
 lane; the MagSgn pass's mu / sig / ok on every lane from the same
 records; the pair's mu / sig on every ok lane and ok on every lane; RCT
 samples bit for bit). The lanes are ragged (odd quad widths, every shape
-up to the raster), with inert lanes and lanes whose U bound fails.
+up to the raster), with inert lanes and lanes whose U bound fails. The
+ICT kernel matches its plain version exactly in both modes: the integer
+mode on inputs whose Q16 products wrap, the float mode (no FMA
+contraction, rint half to even) on random planes and on exact .5 ties.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_streams_batch,
                                               stream_limits)
 from ffmpeg_ht_tpu_torch.ops.ht_enc import encode_cleanup
@@ -176,3 +180,94 @@ def test_rct_kernel_matches_ref(cuda, cbps, shape):
     assert mct_cuda.rct_writeframe.launches == before + 2
     want = torch.cat([mct_cuda.narrow(c, dtype).reshape(-1) for c in ref])
     assert torch.equal(out, want)
+
+
+def _ict_inputs(transform, shape, cbps, seed, cuda):
+    """Three planes on the card: int32 with a share reaching +-2^31 (every
+    Q16 product and 2*y1 wraps), or float32 around the sample range."""
+    g = torch.Generator().manual_seed(seed)
+    lim = 1 << (cbps + 1)
+    if transform == DWT97_INT:
+        y = [torch.randint(-lim, lim, shape, generator=g, dtype=torch.int32)
+             for _ in range(3)]
+        for t in y:
+            t[-2:] = torch.randint(-2 ** 31, 2 ** 31 - 1, t[-2:].shape,
+                                   generator=g, dtype=torch.int32)
+    else:
+        y = [(torch.rand(shape, generator=g) - 0.5) * 2 * lim
+             for _ in range(3)]
+    return [t.to(cuda) for t in y]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.int16,
+                                       torch.uint8])
+@pytest.mark.parametrize("transform", [DWT97_INT, DWT97])
+@pytest.mark.parametrize("shape", [(1080, 1920), (37, 53)])
+def test_ict_kernel_matches_ref(cuda, transform, out_dtype, shape):
+    """Three frames in one launch, each frame's samples frame_stride apart
+    in the packed output; the single-frame form too."""
+    cbps = {torch.int32: 12, torch.int16: 10, torch.uint8: 8}[out_dtype]
+    frames = [_ict_inputs(transform, shape, cbps, cbps + transform + 7 * f,
+                          cuda) for f in range(3)]
+    ref = [mct_cuda.ict_writeframe_ref(*y, cbps, transform) for y in frames]
+    before = mct_cuda.ict_writeframe.launches
+    got = mct_cuda.ict_writeframe(frames[:1], cbps, transform)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], ref[0]))
+    n = frames[0][0].numel()
+    stride = 3 * n + 64
+    out = torch.zeros(2 * stride + 3 * n, dtype=out_dtype, device=cuda)
+    mct_cuda.ict_writeframe(frames, cbps, transform, out=out,
+                            frame_stride=stride)
+    torch.cuda.synchronize()
+    assert mct_cuda.ict_writeframe.launches == before + 2
+    for f in range(3):
+        want = torch.cat([mct_cuda.narrow(c, out_dtype).reshape(-1)
+                          for c in ref[f]])
+        assert torch.equal(out[f * stride:f * stride + 3 * n], want)
+    assert not out[3 * n:stride].any()               # the gaps untouched
+
+
+def test_ict_kernel_float_rounding_ties(cuda):
+    """Exact .5 results round half to even; then random planes whose y0
+    sits on a .5, so that many results land near a rounding boundary,
+    where an FMA in place of a multiply and an add would move some."""
+    ties = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, 100.5])
+    zero = torch.zeros_like(ties)
+    y = [t.reshape(1, -1).to(cuda) for t in (ties, zero, zero)]
+    (got,) = mct_cuda.ict_writeframe([y], 12, DWT97)
+    want = [v + 2048 for v in (0, 2, 2, 0, -2, -2, 4, 100)]
+    assert [g.reshape(-1).tolist() for g in got] == [want] * 3
+    g = torch.Generator().manual_seed(9)
+    y = [((torch.rand((512, 512), generator=g) - 0.5) * 4096).to(cuda)
+         for _ in range(3)]
+    y[0] = torch.floor(y[0]) + 0.5
+    ref = mct_cuda.ict_writeframe_ref(*y, 12, DWT97)
+    (got,) = mct_cuda.ict_writeframe([y], 12, DWT97)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_ict_kernel_many_frames(cuda):
+    """More frames than one launch takes (32): two launches, all right."""
+    frames = [_ict_inputs(DWT97_INT, (16, 24), 8, f, cuda) for f in range(40)]
+    before = mct_cuda.ict_writeframe.launches
+    got = mct_cuda.ict_writeframe(frames, 8, DWT97_INT)
+    torch.cuda.synchronize()
+    assert mct_cuda.ict_writeframe.launches == before + 2
+    for y, g in zip(frames, got):
+        ref = mct_cuda.ict_writeframe_ref(*y, 8, DWT97_INT)
+        assert all(torch.equal(a, b) for a, b in zip(g, ref))
+
+
+def test_ict_kernel_rejects_bad_args(cuda):
+    y = _ict_inputs(DWT97, (8, 8), 8, 1, cuda)
+    out = torch.empty(3 * 64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):              # 10 bits into uint8
+        mct_cuda.ict_writeframe([y], 10, DWT97, out=out)
+    with pytest.raises(ValueError):
+        mct_cuda.ict_writeframe([y], 0, DWT97)
+    with pytest.raises(TypeError):               # int planes, float mode
+        mct_cuda.ict_writeframe([[t.to(torch.int32) for t in y]], 8, DWT97)
+    with pytest.raises(ValueError):
+        mct_cuda.ict_writeframe([y], 8, DWT97, out=out[1:])
+    with pytest.raises(ValueError):              # planes on two shapes
+        mct_cuda.ict_writeframe([y, [t[:4] for t in y]], 8, DWT97)

@@ -4,10 +4,11 @@
 the same bytes as ``ffmpeg_ht_tpu``'s ``Decoder`` and the source image in
 the negotiated pixel format, for v3-eligible streams (96x128,
 nreslevels=3, 32x32 codeblocks: every DWT level takes the band-direct
-path). Also pinned: the port's ``finish_v3`` arrays, the prefill scatter
-with its trash slot against the JAX program, the routing of streams
-outside the slice, and that the port imports neither ``jax`` nor the
-JAX package.
+path). Also pinned: the port's ``finish_v3`` arrays (5/3, integer and
+float 9/7), the prefill scatter with its trash slot against the JAX
+program, the routing of streams outside the slice, and that the port
+imports neither ``jax`` nor the JAX package. The 9/7 path, the flat-DWT
+fallback and the batch entry points: tests/test_torch_decoder97.py.
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ from ffmpeg_ht_tpu.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu.models import fastpath as FP
 from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k, encode_frame_t800
+from ffmpeg_ht_tpu.ops.dwt import DWT97_INT
 from ffmpeg_ht_tpu_torch.models import fastpath as port_fp
 from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
@@ -89,27 +91,46 @@ def test_decode_stream_and_async(dec):
     assert [p().tobytes() for p in pending] == solo
 
 
-def _v3_frame(data):
-    hdr = parse_codestream(data, bitexact=True)
+def _v3_frame(data, bitexact=True):
+    hdr = parse_codestream(data, bitexact=bitexact)
     fg = JaxDecoder._fast_geom(hdr)
     fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
     return fg, fc
 
 
-def test_finish_v3_matches_jax():
-    fg, fc = _v3_frame(STREAMS["rgb10_rct"])
-    want, F = FP.finish_v3(fg, [fc, fc], fg.geom.total)
-    got_np, F2 = port_fp.finish_v3_numpy(fg, [fc, fc], fg.geom.total)
-    got, _ = port_fp.finish_v3(fg, [fc, fc], fg.geom.total, "cpu")
-    assert F == F2 == 2 and set(want) == set(got_np) == set(got)
-    for k, w in want.items():
-        w = np.asarray(w)
-        assert got_np[k].dtype == w.dtype, k
-        assert np.array_equal(got_np[k], w), k
-        t = got[k].numpy()
-        if w.dtype == np.uint32:
-            t = t.view(np.uint32)
-        assert t.dtype == w.dtype and np.array_equal(t, w), k
+@pytest.fixture(scope="module")
+def lossy_streams():
+    """9/7 streams for the lane arguments: integer 9/7 (scale97) and float
+    9/7 (fscale) from one lossy gray stream, and an ICT one."""
+    img = IMAGES["gray8"][0]
+    gray = encode_frame_htj2k(img, pred=0, **ENC)
+    ict = encode_frame_htj2k(IMAGES["rgb8_no_mct"][0], pred=0, mct=True,
+                             **ENC)
+    return [(gray, True), (ict, True), (gray, False)]
+
+
+def test_finish_v3_matches_jax(lossy_streams):
+    """The lane arguments, the state the JAX side hands the device program,
+    equal the JAX package's for a 5/3 RCT stream, an integer 9/7 stream
+    (scale97 pinned) and a float 9/7 one (fscale pinned)."""
+    for data, bitexact in [(STREAMS["rgb10_rct"], True)] + lossy_streams:
+        fg, fc = _v3_frame(data, bitexact)
+        want, F = FP.finish_v3(fg, [fc, fc], fg.geom.total)
+        got_np, F2 = port_fp.finish_v3_numpy(fg, [fc, fc], fg.geom.total)
+        got, _ = port_fp.finish_v3(fg, [fc, fc], fg.geom.total, "cpu")
+        assert F == F2 == 2 and set(want) == set(got_np) == set(got)
+        if not bitexact:
+            assert np.asarray(want["fscale"]).any()
+        elif fg.geom.transform == DWT97_INT:
+            assert np.asarray(want["scale97"]).any()
+        for k, w in want.items():
+            w = np.asarray(w)
+            assert got_np[k].dtype == w.dtype, k
+            assert np.array_equal(got_np[k], w), k
+            t = got[k].numpy()
+            if w.dtype == np.uint32:
+                t = t.view(np.uint32)
+            assert t.dtype == w.dtype and np.array_equal(t, w), k
 
 
 def test_prefill_scatter_matches_jax(jax_dec):
@@ -164,10 +185,13 @@ def test_u_bound_violation_raises_invalid_data(dec):
 
 
 def test_outside_slice_raises_not_host(dec):
+    """A stream with refinement passes needs the v2 bucketed path: it
+    raises naming its ROADMAP item and never goes to the host oracle."""
     img = IMAGES["gray8"][0]
     host_before = dec.host_frames
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.decode(encode_frame_htj2k(img, pred=0, **ENC))       # 9/7
+        dec.decode(encode_frame_htj2k(img, refinement=True, ht_layers=2,
+                                      **ENC))
     assert dec.host_frames == host_before
 
 

@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's v3 device program on one NVIDIA card.
 
-    python3 tools/profile_torch_v3.py [--reps 5] [--trace trace.json]
+    python3 tools/profile_torch_v3.py [--config c3|c2] [--reps 5]
+                                      [--trace trace.json]
 
-Encodes the natural-content DCI-4K 10-bit 4:4:4 RCT frame of
-``chip_smoke.py`` (same seed), decodes it once through
-``Decoder(device="cuda")``, which builds and caches the program, then:
+``--config c3`` (the default) encodes the natural-content DCI-4K 10-bit
+4:4:4 RCT frame of ``chip_smoke.py`` (same seed) and decodes it once
+through ``Decoder(device="cuda")``; ``--config c2`` encodes the four
+1080p 8-bit RGB 9/7 + ICT frames of ``chip_smoke.py`` phase 6 (same
+seed) and decodes them once through ``Decoder(device="cuda",
+bitexact=False).decode_batch``, one program of four frames. Either call
+builds and caches the program; then the tool:
 
   1. times `reps` calls of the program on lane arrays already on the
-     card with CUDA events (wall ms per call, no profiler attached);
+     card with CUDA events (wall ms per call, and per frame, no profiler
+     attached);
   2. runs ``torch.profiler`` over another `reps` calls and prints, per
      program call: the device-busy ms (sum of the device-side spans:
      kernels, copies, fills), the device timeline's span from the first
@@ -35,7 +41,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import ENC, H, W, _gpu_name_power, _natural, _rgb
+from chip_smoke import (ENC, H, W, _c2_streams, _gpu_name_power, _natural,
+                        _rgb)
 
 import numpy as np
 import torch
@@ -66,6 +73,8 @@ def _wall_ms(prog, args, reps: int) -> float:
 
 def _profile(prog, args, reps: int, trace):
     wall = _wall_ms(prog, args, reps)
+    print(f"program of {prog.frames} frame(s): {wall / prog.frames:.3f} "
+          "ms/frame (CUDA events, no profiler)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         for _ in range(reps):
@@ -117,23 +126,30 @@ def _clocks_power(prog, args, seconds: float = 3.0):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("c3", "c2"), default="c3")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--trace", default=None)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_v3: no CUDA card", file=sys.stderr)
         return 1
-    print(f"card: {_gpu_name_power()} | torch {torch.__version__}")
-    data = encode_frame_htj2k(
-        _rgb(_natural(np.random.default_rng(2024), H, W)), **ENC)
-    dec = Decoder(device="cuda")
-    dec.decode(data)
-    hdr = parse_codestream(data, bitexact=True)
-    fg = dec._fast_geom(hdr)
-    (prog,) = fg.v3_progs.values()
-    fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
+    print(f"card: {_gpu_name_power()} | torch {torch.__version__} | "
+          f"config {opts.config}")
+    if opts.config == "c3":
+        streams = [encode_frame_htj2k(
+            _rgb(_natural(np.random.default_rng(2024), H, W)), **ENC)]
+        bitexact = True
+    else:
+        streams = _c2_streams(np.random.default_rng(2025))
+        bitexact = False
+    dec = Decoder(device="cuda", bitexact=bitexact)
+    dec.decode_batch(streams)
+    hdrs = [parse_codestream(d, bitexact=bitexact) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+    (prog,) = [p for k, p in fg.v3_progs.items() if k[0] == len(streams)]
+    fcs = [FP.build_v3_frame(fg, FP.parse_frame_flat(h, fg)) for h in hdrs]
     args = {k: to_torch(v, "cuda") for k, v in
-            finish_v3_numpy(fg, [fc], fg.geom.total)[0].items()}
+            finish_v3_numpy(fg, fcs, fg.geom.total)[0].items()}
     _profile(prog, args, opts.reps, opts.trace)
     _clocks_power(prog, args)
     return 0
