@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives ``ffmpeg_ht_tpu_torch`` end to end at two configurations of
+Drives ``ffmpeg_ht_tpu_torch`` end to end at three configurations of
 BASELINE.json: config 3, three seeded DCI-4K (4096x2160) 10-bit 4:4:4
 lossless frames (reversible 5/3 + RCT, 64x64 codeblocks, one 4096x4096
-tile) through ``Decoder(device="cuda").decode_stream``; and config 2,
+tile) through ``Decoder(device="cuda").decode_stream``; config 2,
 four 1920x1080 8-bit RGB lossy frames (9/7 + ICT, 64x64 codeblocks, one
 2048x2048 tile, 6 resolution levels, bench.py:345-355) through
 ``Decoder(device="cuda", bitexact=False).decode_batch`` and
-``Decoder(device="cuda", bitexact=True).decode_stream``. Phases, one
+``Decoder(device="cuda", bitexact=True).decode_stream``; and config 4
+(bench.py:418-447), 10-bit gray lossless with 1024x1024 tiles, 64x64
+codeblocks and precincts and two HT quality layers, cut from 7680x4320
+to a 2048x2048 crop, through the v2 bucketed path. Phases, one
 line or more each; any failure raises and the script exits non-zero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -42,7 +45,21 @@ line or more each; any failure raises and the script exits non-zero:
      ``decode_stream`` byte-equal to the host integer oracle with every
      frame on the device; a small stream whose lowest DWT level is below
      8x8 (flat fallback) byte-equal to the host oracle; then
-     ``decode_batch`` ms per frame and ``bench_resident`` ms per frame.
+     ``decode_batch`` ms per frame and ``bench_resident`` ms per frame;
+  7. the c4 crop: two grainy natural frames encoded with the port's
+     encoder (~90 s), their z_blk histograms (at least half of the device
+     lanes must be refined); on every bucket of the v2 program that
+     ``decode_batch`` [A, B, A, B] dispatches (``Decoder._v2_args``) the
+     cleanup kernels against their plain versions and, on the refined
+     buckets, ``ht_refine`` against ``refine_ref`` (time, bound, share);
+     the main paths ``decode_stream`` [A, B] and ``decode_batch`` [A, B,
+     A, B] (counts reset before and read after each, every frame equal
+     to its source, all on the v2 path); their ms per frame and one
+     batch step by step; then 256x256 streams through the v2 path: RGB
+     10-bit RCT (== source), RGB 8-bit 9/7 + ICT (integer == host
+     oracle, float within 1 LSB), vertically stripe-causal (the object
+     path, == source), ``max_layers=1`` and ``reduction_factor=1``
+     (== the host oracle with the same option).
 
 The last lines are the card's name and power limit, a JSON object with
 the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
@@ -74,7 +91,7 @@ from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
-from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.utils import build, native
 
@@ -86,6 +103,16 @@ REPS = 3
 C2_W, C2_H = 1920, 1080
 C2_ENC = dict(pred=0, mct=True, tile_width=2048, tile_height=2048,
               log2_cblk_width=6, log2_cblk_height=6, nreslevels=6)
+# BASELINE config 4 (bench.py:418-447): 8K tiled 10-bit gray lossless,
+# 1024x1024 tiles, 64x64 codeblocks and precincts, two HT quality layers;
+# here a 2048x2048 crop (4 of the frame's 40 tiles) of natural content
+C4_W = C4_H = 2048
+C4_ENC = dict(depth=10, tile_width=1024, tile_height=1024,
+              log2_cblk_width=6, log2_cblk_height=6, log2_prec_width=6,
+              refinement=True, ht_layers=2)
+# the small streams of phase 7 (256x256, 32x32 codeblocks, 4 levels)
+SMALL_ENC = dict(log2_cblk_width=5, log2_cblk_height=5, nreslevels=4,
+                 refinement=True, ht_layers=2)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published, at the 700 W limit
 # the earlier cleanup kernel, one thread per codeblock, on an H100 80GB
 # HBM3 at 700 W (PERF.md, section 6): printed beside the split design
@@ -107,6 +134,17 @@ def _natural(rng, h, w, maxval=1023, dtype=np.uint16):
                       + (c * (1 - fx) + d * fx) * fy)
     acc = (acc - acc.min()) / (np.ptp(acc) + 1e-9)
     return (acc * maxval).astype(dtype)
+
+
+def _grainy(rng, h, w):
+    """10-bit natural value noise with Gaussian sensor grain (sigma 2
+    LSB): a camera frame's fine detail, whose small coefficients are what
+    the HT refinement passes carry (smooth content leaves isolated +-1
+    coefficients that SigProp cannot reach, and the encoder codes such a
+    codeblock with the cleanup pass alone)."""
+    base = _natural(rng, h, w).astype(np.float64) * 0.9 + 51
+    return np.clip(np.rint(base + rng.normal(0, 2, (h, w))), 0,
+                   1023).astype(np.uint16)
 
 
 def _smooth(h, w, maxval=1023, dtype=np.uint16):
@@ -176,7 +214,7 @@ def _laps(dec, streams, bitexact: bool, dev):
             ("device_program", lambda a: prog(**a)),
             ("fetch", lambda p: p.cpu()),
             ("write_frame", lambda p: dec._split_frames(
-                hdrs, fg.tiles, fg.geom, p))):
+                [(h, fg.tiles) for h in hdrs], fg.geom, p))):
         val = step(val)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -188,15 +226,21 @@ def _laps(dec, streams, bitexact: bool, dev):
             f"{100 * laps['device_program'] / total:.1f}% of it")
 
 
-def _cleanup_check(args, fcs, qw, qh, msc):
+def _v3_segments(fcs):
+    """(lcup, pcup) of the decoded lanes of v3 frame columns `fcs`."""
+    return (np.concatenate([fc["lcups"][fc["qws"] > 0] for fc in fcs]),
+            np.concatenate([fc["pcups"][fc["qws"] > 0] for fc in fcs]))
+
+
+def _cleanup_check(args, segments, qw, qh, msc):
     """The HT cleanup kernels against their plain versions on the lanes of
-    `args` (a device program's lane arguments, on the card; `fcs` are its
-    frames' v3 columns): the VLC pass (records exact), the MagSgn pass on
-    the same records, and the pair against ``cleanup_ref``. Raises on any
-    difference. Returns, for "vlc", "magsgn" and "pair", the max abs
-    error, the kernel's ms by CUDA events, the plain version's ms (host
-    clock, one call) and the bound from the bytes these lanes need; and
-    the lanes' sizes under "lanes"."""
+    `args` (a device program's lane arguments, on the card; `segments` the
+    (lcup, pcup) of its decoded lanes): the VLC pass (records exact), the
+    MagSgn pass on the same records, and the pair against ``cleanup_ref``.
+    Raises on any difference. Returns, for "vlc", "magsgn" and "pair", the
+    max abs error, the kernel's ms by CUDA events, the plain version's ms
+    (host clock, one call) and the bound from the bytes these lanes need;
+    and the lanes' sizes under "lanes"."""
     (msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs) = (
         args[k] for k in ("msw", "melw", "vlcw", "pLSB", "maxbp", "ms_lim",
                           "mel_lim", "qws", "qhs"))
@@ -249,8 +293,7 @@ def _cleanup_check(args, fcs, qw, qh, msc):
     # bytes these inputs need: the segment bytes of the decoded lanes
     # (MagSgn: [0, pcup); MEL and VLC: [pcup, lcup)), the per-lane
     # vectors, the records, and mu + sig + ok
-    lc = np.concatenate([fc["lcups"][fc["qws"] > 0] for fc in fcs])
-    pc = np.concatenate([fc["pcups"][fc["qws"] > 0] for fc in fcs])
+    lc, pc = segments
     ms_bytes = int(pc.astype(np.int64).sum())
     melvlc_bytes = int((lc - pc).astype(np.int64).sum())
     rec_bytes = 4 * N * qh * qw
@@ -296,16 +339,19 @@ def _c2_streams(rng):
     return [encode_frame_htj2k(f, **C2_ENC) for f in sources]
 
 
+_KERNELS = {"ht_vlc_pass": ht_scan.ht_vlc_pass,
+            "ht_magsgn_pass": ht_scan.ht_magsgn_pass,
+            "rct_writeframe": mct_cuda.rct_writeframe,
+            "ict_writeframe": mct_cuda.ict_writeframe,
+            "ht_refine": ht_refine.decode_refinement_scan}
+
+
 def _counts():
-    return {"ht_vlc_pass": ht_scan.ht_vlc_pass.launches,
-            "ht_magsgn_pass": ht_scan.ht_magsgn_pass.launches,
-            "rct_writeframe": mct_cuda.rct_writeframe.launches,
-            "ict_writeframe": mct_cuda.ict_writeframe.launches}
+    return {k: fn.launches for k, fn in _KERNELS.items()}
 
 
 def _reset_counts():
-    for fn in (ht_scan.ht_vlc_pass, ht_scan.ht_magsgn_pass,
-               mct_cuda.rct_writeframe, mct_cuda.ict_writeframe):
+    for fn in _KERNELS.values():
         fn.launches = 0
 
 
@@ -329,7 +375,8 @@ def _ict_check(dec, streams, transform):
     shape (one launch for the F frames) and at ``decode_stream``'s (one
     launch for one frame). Returns (the numbers, ms by CUDA events and
     bounds from the bytes moved; the program's lane arguments, its
-    frames' v3 columns and the program itself, for the cleanup check)."""
+    decoded lanes' (lcup, pcup) and the program itself, for the cleanup
+    check)."""
     hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
     fg = dec._fast_geom(hdrs[0])
     cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs]
@@ -379,7 +426,8 @@ def _ict_check(dec, streams, transform):
             ys[:1], 8, transform, out=one_k), 20, True),
         bound_ms_one_frame=_bound(3 * npx * 4 + 3 * npx),
         program_ms_per_frame=_cuda_ms(lambda: prog(**args), 3) / F)
-    return nums, args, [FP.build_v3_frame(fg, c) for c in cols_list], prog
+    return nums, args, _v3_segments([FP.build_v3_frame(fg, c)
+                                     for c in cols_list]), prog
 
 
 def _phase6(dev):
@@ -400,7 +448,7 @@ def _phase6(dev):
     modes, lanes = {}, None
     for name, dec, transform in (("float", dec_f, DWT97),
                                  ("int", dec_i, DWT97_INT)):
-        m, args, fcs, prog = _ict_check(dec, streams, transform)
+        m, args, segs, prog = _ict_check(dec, streams, transform)
         modes[name] = m
         print(f"phase 6   ict {name} mode == ict_writeframe_ref + pack on "
               f"{m['frames']} frames of 3 x {C2_H}x{C2_W} {m['dtype']} "
@@ -412,7 +460,7 @@ def _phase6(dev):
               f"of bound; device program {m['program_ms_per_frame']:.2f} "
               f"ms/frame (F={m['frames']})")
         if lanes is None:      # the lanes are the same in both modes
-            lanes = (args, fcs, prog.qw, prog.qh, prog.ms_class)
+            lanes = (args, segs, prog.qw, prog.qh, prog.ms_class)
         del args
 
     # the HT cleanup kernels at this path's lanes: F frames in one launch
@@ -430,7 +478,7 @@ def _phase6(dev):
     frames = dec_f.decode_batch(streams)
     batch_counts = _counts()
     want = {"ht_vlc_pass": 1, "ht_magsgn_pass": 1, "rct_writeframe": 0,
-            "ict_writeframe": 1}
+            "ict_writeframe": 1, "ht_refine": 0}
     if batch_counts != want:
         raise RuntimeError(f"decode_batch launches {batch_counts}, "
                            f"expected {want}")
@@ -450,7 +498,8 @@ def _phase6(dev):
     frames = list(dec_i.decode_stream(streams))
     int_counts = _counts()
     want = {"ht_vlc_pass": len(streams), "ht_magsgn_pass": len(streams),
-            "rct_writeframe": 0, "ict_writeframe": len(streams)}
+            "rct_writeframe": 0, "ict_writeframe": len(streams),
+            "ht_refine": 0}
     if dec_i.v3_frames != len(streams) or dec_i.host_frames \
             or int_counts != want:
         raise RuntimeError(f"decode_stream (bitexact): v3 frames "
@@ -502,6 +551,299 @@ def _phase6(dev):
     return entry, c2, paths
 
 
+def _c4_streams():
+    """BASELINE config 4's crop: two seeded grainy natural frames and their
+    streams, encoded by the port's encoder."""
+    srcs = [_grainy(np.random.default_rng(seed), C4_H, C4_W)
+            for seed in (4040, 4041)]
+    return srcs, [encode_frame_htj2k(x, **C4_ENC) for x in srcs]
+
+
+def _zblk_hist(fg, cols):
+    """z_blk histograms of a frame's codeblocks, all included ones and the
+    device lanes alone; the host-oracle lanes (under _HOST_AREA samples,
+    or maxbp > 25) and how many of them have maxbp > 25."""
+    act, npasses = cols["active"], cols["npasses"]
+    rem = npasses % 3
+    plhd = np.where(rem, npasses - rem, npasses - 3)
+    zblk = npasses - plhd
+    deep = act & (cols["zbp"] + plhd // 3 + 1 > 25)
+    dev = act & ~fg.area_small & ~deep
+    return ({z: int(((zblk == z) & act).sum()) for z in (1, 2, 3)},
+            {z: int(((zblk == z) & dev).sum()) for z in (1, 2, 3)},
+            int((act & ~dev).sum()), int(deep.sum()))
+
+
+def _v2_buckets(dec, streams):
+    """The buckets of the v2 program Decoder.decode_batch dispatches for
+    same-geometry `streams` (``Decoder._v2_args``, which _fast_batch and
+    _fast_launch call): (shapes, numpy bucket arrays, per bucket its lanes'
+    cleanup (lcup, pcup) and the refinement bytes its lanes hold)."""
+    hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+    _geom, (shapes, bargs, _pf_idx, _pf_val), accum = dec._v2_args(
+        fg, [FP.parse_frame_flat(h, fg) for h in hdrs])
+    segs = []
+    for key in sorted(accum["buckets"]):
+        lc, pc, rb = [], [], []
+        for body, off, lcup, lref, zb in accum["buckets"][key]["rows"]:
+            b = np.frombuffer(body, np.uint8)
+            scup = (b[off + lcup - 1].astype(np.int64) << 4) \
+                + (b[off + lcup - 2] & 0x0F)
+            lc.append(lcup)
+            pc.append(lcup - scup)
+            # Dref bytes as finish_buckets caps them: SigProp's prefix
+            # (z_blk >= 2) and MagRef's suffix (z_blk 3) of one segment
+            cap = np.where(zb >= 3, FP.SP_CAP + FP.MR_CAP, FP.SP_CAP)
+            rb.append(np.where(zb >= 2, np.minimum(lref, cap), 0))
+        segs.append((np.concatenate(lc), np.concatenate(pc),
+                     int(np.concatenate(rb).astype(np.int64).sum())))
+    return shapes, bargs, segs
+
+
+def _v2_kernel_checks(dev, shapes, bargs, segs):
+    """On every bucket of a v2 program: the cleanup kernels against their
+    plain versions (``_cleanup_check``), and on every refined bucket
+    ``ht_refine`` against ``refine_ref`` on the kernel cleanup's (mu, sig).
+    Raises on any difference; returns the numbers summed over the buckets
+    (ms by CUDA events with a head start, bounds from the bytes)."""
+    up = lambda v: to_torch(v, dev) if isinstance(v, np.ndarray) else v
+    u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
+    clean = {k: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+             for k in ("vlc", "magsgn", "pair")}
+    ref = dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               buckets=0, lanes=0, shapes=[])
+    for (qw, qh, w, h, msc, refined), a, (lc, pc, dref) in zip(
+            shapes, bargs, segs):
+        t = {k: up(v) for k, v in a.items()}
+        t["qws"], t["qhs"] = ht_scan._bucket_dims(t["msw"], qw, qh,
+                                                  a["nreal"])
+        c = _cleanup_check(t, (lc, pc), qw, qh, msc)
+        for k, m in clean.items():
+            m["max_abs_err"] = max(m["max_abs_err"], c[k]["max_abs_err"])
+            for f in ("ms", "plain_ms", "bound_ms"):
+                m[f] += c[k][f]
+        if not refined:
+            continue
+        mu, sig, _ok = ht_scan.decode_cleanup_scan_sig(
+            t["msw"], t["melw"], t["vlcw"], t["pLSB"], t["maxbp"],
+            t["ms_lim"], t["mel_lim"], qw, qh, msc, a["nreal"])
+        rargs = (mu, sig, t["spw"], t["mrw"], t["pLSB"], t["has_sp"],
+                 t["has_mr"], t["causal"], qw, qh, w, h)
+        got = ht_refine.decode_refinement_scan(*rargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ht_refine.refine_ref(*rargs)
+        torch.cuda.synchronize()
+        ref["plain_ms"] += (time.perf_counter() - t0) * 1e3
+        err = int((u32(got) - u32(want)).abs().max())
+        if err:
+            raise RuntimeError(f"ht_refine differs from refine_ref on the "
+                               f"{w}x{h} bucket (max abs err {err})")
+        ref["ms"] += _cuda_ms(lambda: ht_refine.decode_refinement_scan(
+            *rargs), 10, True)
+        # the real lanes' mu read and written, quad patterns, pLSB and the
+        # three flags, and the Dref bytes these lanes hold
+        n = a["nreal"]
+        ref["bound_ms"] += _bound(n * (2 * 4 * 4 * qh * qw + 4 * qh * qw + 7)
+                                  + dref)
+        ref["buckets"] += 1
+        ref["lanes"] += n
+        ref["shapes"].append(f"{w}x{h}:{n}")
+    return clean, ref
+
+
+def _laps_v2(dec, streams, dev):
+    """Where a v2 batch's time goes: the calls Decoder.decode_batch makes
+    for `streams` (flat lane, v2 route), one by one with a device sync
+    after each device step (host clock, ms for the whole batch)."""
+    hdrs = [parse_codestream(d, bitexact=True) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+
+    def upload(v2):
+        gm, (shapes, bargs, pf_idx, pf_val), _accum = v2
+        up = lambda v: to_torch(v, dev) if isinstance(v, np.ndarray) else v
+        return (ASM.BucketProgram(shapes, gm.key()), up(pf_idx), up(pf_val),
+                [{k: up(v) for k, v in a.items()} for a in bargs])
+
+    laps, val = {}, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, step in (
+            ("parse", lambda _: [parse_codestream(d, bitexact=True)
+                                 for d in streams]),
+            ("t2_native", lambda _: [FP.parse_frame_flat(h, fg)
+                                     for h in hdrs]),
+            ("v2_args", lambda cols: dec._v2_args(fg, cols)),
+            ("upload", upload),
+            ("device_program", lambda u: u[0](*u[1:])),
+            ("fetch", lambda p: p.cpu()),
+            ("write_frame", lambda p: dec._split_frames(
+                [(h, fg.tiles) for h in hdrs], fg.geom, p))):
+        val = step(val)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        laps[name] = (t1 - t0) * 1e3
+        t0 = t1
+    total_ms = sum(laps.values())
+    return (" | ".join(f"{k} {v:.1f}" for k, v in laps.items())
+            + f" | total {total_ms:.1f}; device program "
+            f"{100 * laps['device_program'] / total_ms:.1f}% of it")
+
+
+def _same(frame, src, depth):
+    """The decoded gray or packed-RGB frame equals its source in the
+    negotiated format (gray16le / rgb48le: samples << (16 - depth))."""
+    want = src.astype(np.uint16) << (16 - depth) if depth > 8 else src
+    got = frame.planes[0]
+    return got.size == want.size and np.array_equal(
+        got.reshape(want.shape), want)
+
+
+def _need_launched(counts, names, what):
+    missing = [k for k in names if counts[k] < 1]
+    if missing:
+        raise RuntimeError(f"{what}: {missing} never launched ({counts})")
+
+
+def _phase7(dev):
+    """BASELINE config 4 (a crop) and the v2 path's other routes; returns
+    (the ht_refine entry of the kernels line without its launches, the
+    cleanup kernels' numbers at the v2 buckets, {path: (launch counts,
+    frames)} of decode_stream and decode_batch)."""
+    t0 = time.perf_counter()
+    srcs, (A, B) = _c4_streams()
+    print(f"phase 7 encode (port encoder): 2 grainy natural frames "
+          f"{C4_W}x{C4_H} "
+          f"10-bit gray 5/3, 1024x1024 tiles, 64x64 codeblocks and "
+          f"precincts, 2 HT layers (BASELINE config 4, cut from 7680x4320),"
+          f" {(len(A) + len(B)) / 2e6:.2f} MB/frame avg, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    dec = Decoder(device=dev)
+    for name, data in (("A", A), ("B", B)):
+        hdr = parse_codestream(data, bitexact=True)
+        fg = dec._fast_geom(hdr)
+        every, devl, n_host, n_deep = _zblk_hist(
+            fg, FP.parse_frame_flat(hdr, fg))
+        ndev = sum(devl.values())
+        print(f"phase 7 frame {name}: {fg.ncblks} codeblocks, z_blk "
+              f"histogram {every}; device lanes {ndev}, z_blk {devl}; "
+              f"host-oracle lanes {n_host} ({n_deep} of them for maxbp > "
+              f"25, the rest under 256 samples)")
+        if n_deep:
+            raise RuntimeError(f"frame {name}: lanes with maxbp > 25")
+        if 2 * (devl[2] + devl[3]) < ndev:
+            raise RuntimeError(f"frame {name}: fewer than half of the device "
+                               "lanes carry refinement passes")
+
+    # the kernels on the buckets of the main path's own program
+    batch_in = [A, B, A, B]
+    shapes, bargs, segs = _v2_buckets(dec, batch_in)
+    clean, ref = _v2_kernel_checks(dev, shapes, bargs, segs)
+    print(f"phase 7 decode_batch [A, B, A, B]'s program: {len(shapes)} "
+          f"buckets ({sum(a['nreal'] for a in bargs)} device lanes; "
+          f"{ref['buckets']} refined buckets, {ref['lanes']} lanes)")
+    _print_cleanup("phase 7", clean)
+    print(f"phase 7   ht_refine == refine_ref on every refined bucket "
+          f"({', '.join(ref['shapes'])}): kernel {ref['ms']:.4f} ms "
+          f"({ref['ms'] / len(batch_in):.4f} ms/frame), plain "
+          f"{ref['plain_ms']:.1f} ms, bound {ref['bound_ms']:.4f} ms "
+          f"(bytes), {100 * ref['bound_ms'] / ref['ms']:.1f}% of bound")
+
+    # the main paths
+    _reset_counts()
+    frames = list(dec.decode_stream([A, B]))
+    stream_counts = _counts()
+    _reset_counts()
+    batch = dec.decode_batch(batch_in)
+    batch_counts = _counts()
+    if batch_counts["ht_refine"] != ref["buckets"]:
+        raise RuntimeError(f"decode_batch launched ht_refine "
+                           f"{batch_counts['ht_refine']} times; its program "
+                           f"has {ref['buckets']} refined buckets")
+    for fr, src in zip(frames + batch, srcs + srcs + srcs):
+        if not _same(fr, src, 10):
+            raise RuntimeError(f"c4 frame ({fr.fmt.name}) differs from its "
+                               "source")
+    if dec.v2_frames != 6 or dec.v3_frames or dec.host_frames:
+        raise RuntimeError(f"c4: v2 frames {dec.v2_frames}, v3 "
+                           f"{dec.v3_frames}, host {dec.host_frames}")
+    on_path = ("ht_vlc_pass", "ht_magsgn_pass", "ht_refine")
+    _need_launched(stream_counts, on_path, "c4 decode_stream")
+    _need_launched(batch_counts, on_path, "c4 decode_batch")
+    print(f"phase 7 decode_stream [A, B] and decode_batch [A, B, A, B]: "
+          f"every frame == source ({frames[0].fmt.name}), all 6 via the "
+          f"BucketProgram; launches {stream_counts} and {batch_counts}")
+    times = {"decode_stream": [], "decode_batch": []}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _fr in dec.decode_stream([A, B]):
+            pass
+        times["decode_stream"].append((time.perf_counter() - t0) * 500)
+        t0 = time.perf_counter()
+        dec.decode_batch(batch_in)
+        times["decode_batch"].append((time.perf_counter() - t0) * 250)
+    print("phase 7 ms/frame: " + "; ".join(
+        f"{k} {', '.join(f'{t:.1f}' for t in v)}" for k, v in times.items()))
+    print("phase 7 one batch of 4, ms: " + _laps_v2(dec, batch_in, dev))
+
+    # the v2 path's other routes, on small streams
+    rng = np.random.default_rng(4042)
+    gray = _grainy(rng, 256, 256)
+    rgb10 = _rgb(gray)
+    rgb8 = (rgb10 >> 2).astype(np.uint8)
+    s_rct = encode_frame_htj2k(rgb10, depth=10, mct=True, **SMALL_ENC)
+    s_ict = encode_frame_htj2k(rgb8, pred=0, mct=True, **SMALL_ENC)
+    s_vsc = encode_frame_htj2k(gray, depth=10, causal=True, **SMALL_ENC)
+    s_gray = encode_frame_htj2k(gray, depth=10, **SMALL_ENC)
+    v2_before = dec.v2_frames
+    _reset_counts()
+    if not _same(dec.decode(s_rct), rgb10, 10):
+        raise RuntimeError("small RCT stream differs from its source")
+    _need_launched(_counts(), on_path + ("rct_writeframe",), "small RCT")
+    d_int = Decoder(device=dev, bitexact=True)
+    d_flt = Decoder(device=dev, bitexact=False)
+    _reset_counts()
+    diffs = [_host_diff(d_int.decode(s_ict), s_ict, True),
+             _host_diff(d_flt.decode(s_ict), s_ict, False)]
+    _need_launched(_counts(), on_path + ("ict_writeframe",), "small ICT")
+    if diffs[0][0] or diffs[1][0] > 1:
+        raise RuntimeError(f"small ICT stream vs host oracles: {diffs}")
+    if not _same(dec.decode(s_vsc), gray, 10):
+        raise RuntimeError("VSC stream differs from its source")
+    opts = []
+    for kw in (dict(max_layers=1), dict(reduction_factor=1)):
+        d = Decoder(device=dev, **kw)
+        got = d.decode(s_gray).tobytes()
+        want = host_decoder.decode_frame(s_gray, bitexact=True, **kw)
+        if got != want.tobytes() or d.v2_frames != 1 or d.host_frames:
+            raise RuntimeError(f"{kw}: differs from the host oracle or did "
+                               f"not take the v2 path")
+        opts.append(f"{kw} ({want.width}x{want.height})")
+    if dec.v2_frames != v2_before + 2 or d_int.v2_frames != 1 \
+            or d_flt.v2_frames != 1 \
+            or dec.host_frames + d_int.host_frames + d_flt.host_frames:
+        raise RuntimeError("small streams: not all on the v2 path")
+    print(f"phase 7 small 256x256 streams on the v2 path: RGB 10-bit RCT == "
+          f"source; RGB 8-bit 9/7+ICT integer == host oracle, float vs host "
+          f"float oracle (max abs diff, samples off) {diffs[1]}; VSC (object "
+          f"path) == source; {', '.join(opts)} == host oracle")
+
+    entry = dict(name="ht_refine", route="cuda",
+                 source="ffmpeg_ht_tpu_torch/csrc/ht_refine.cu",
+                 replaces="ffmpeg_ht_tpu/ops/ht_refine.py:58",
+                 max_abs_err=ref["max_abs_err"], ms=ref["ms"],
+                 plain_ms=ref["plain_ms"], bound_ms=ref["bound_ms"],
+                 shapes="decode_batch [A, B, A, B]'s refined buckets, summed",
+                 ms_per_frame=ref["ms"] / len(batch_in),
+                 buckets=ref["buckets"], lanes=ref["lanes"])
+    paths = {"c4_decode_stream": (stream_counts, 2),
+             "c4_decode_batch": (batch_counts, 4)}
+    return entry, clean, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -546,7 +888,7 @@ def main() -> int:
     qw, qh = plan.bw // 2, plan.bh // 2
     mb = int(fc["maxbp"][fc["qws"] > 0].max())
     msc = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-    c3 = _cleanup_check(args, [fc], qw, qh, msc)
+    c3 = _cleanup_check(args, _v3_segments([fc]), qw, qh, msc)
     ln = c3["lanes"]
     print(f"phase 4 HT cleanup on {ln['N']} lanes (qw=qh={qw}, ms_class="
           f"{msc}, W ms/mel/vlc = {'/'.join(map(str, ln['W']))}; segment "
@@ -608,10 +950,10 @@ def main() -> int:
     if dec.v3_frames != len(order) or dec.host_frames:
         raise RuntimeError(f"v3 frames {dec.v3_frames}, host frames "
                            f"{dec.host_frames}")
-    if any(n != (0 if k == "ict_writeframe" else len(order))
+    if any(n != (0 if k in ("ict_writeframe", "ht_refine") else len(order))
            for k, n in launches.items()):
         raise RuntimeError(f"launches {launches}, expected one per frame "
-                           f"({len(order)}) and no ICT")
+                           f"({len(order)}), no ICT and no refinement")
     times = []
     for _ in range(REPS):
         torch.cuda.synchronize()
@@ -633,37 +975,47 @@ def main() -> int:
     # ---- phase 6: the c2 irreversible path
     ict_entry, c2, c2_paths = _phase6(dev)
 
+    # ---- phase 7: BASELINE config 4 (a crop), the v2 bucketed path
+    refine_entry, c4, c4_paths = _phase7(dev)
+
     cleanup_src = "ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192"
     kernels = [
         dict(name="ht_vlc_pass", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/ht_vlc_pass.cu",
              replaces=cleanup_src, **c3["vlc"],
-             c2_decode_batch_shapes=c2["vlc"]),
+             c2_decode_batch_shapes=c2["vlc"],
+             c4_decode_batch_buckets=c4["vlc"]),
         dict(name="ht_magsgn_pass", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/ht_magsgn_pass.cu",
              replaces=cleanup_src, **c3["magsgn"],
-             c2_decode_batch_shapes=c2["magsgn"]),
+             c2_decode_batch_shapes=c2["magsgn"],
+             c4_decode_batch_buckets=c4["magsgn"]),
         dict(name="rct_writeframe", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/rct_writeframe.cu",
              replaces="ffmpeg_ht_tpu/ops/mct_pallas.py:36",
              max_abs_err=rct_err, ms=rct_ms, plain_ms=rct_plain_ms,
              bound_ms=rct_bound),
         ict_entry,
+        refine_entry,
     ]
     # every path's run is read between a reset and the next; `launches`
     # is the count on the kernel's main path, the path whose shapes its
     # ms and bound_ms were measured at: c3 decode_stream (phase 5) for the
-    # kernels of the 5/3 slice, c2 decode_batch (phase 6) for ICT
-    paths = {"c3_decode_stream": (launches, len(order)), **c2_paths}
+    # kernels of the 5/3 slice, c2 decode_batch (phase 6) for ICT, c4
+    # decode_batch (phase 7) for ht_refine
+    paths = {"c3_decode_stream": (launches, len(order)), **c2_paths,
+             **c4_paths}
+    main_paths = {"ict_writeframe": "c2_decode_batch",
+                  "ht_refine": "c4_decode_batch"}
     for k in kernels:
-        main_path = "c2_decode_batch" if k["name"] == "ict_writeframe" \
-            else "c3_decode_stream"
+        main_path = main_paths.get(k["name"], "c3_decode_stream")
         n = {p: c[k["name"]] for p, (c, _f) in paths.items()}
         per_frame = {p: n[p] / f for p, (_c, f) in paths.items()}
-        k["max_abs_err"] = max(k["max_abs_err"], k.get(
-            "c2_decode_batch_shapes", {}).get("max_abs_err", 0))
-        # no single PyTorch call computes an HT cleanup pass, nor RCT or
-        # ICT with DC shift, clip and the narrow pack
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            k.get(s, {}).get("max_abs_err", 0)
+            for s in ("c2_decode_batch_shapes", "c4_decode_batch_buckets")])
+        # no single PyTorch call computes an HT cleanup pass, SigProp /
+        # MagRef, nor RCT or ICT with DC shift, clip and the narrow pack
         k.update(main_path=main_path, launches=n[main_path],
                  launches_per_frame=per_frame[main_path],
                  launches_by_path=n, launches_per_frame_by_path=per_frame,

@@ -1,7 +1,9 @@
-"""v3 fused decode program in PyTorch (counterpart of
-``ffmpeg_ht_tpu.models.assembly.make_v3_program``).
+"""The device programs in PyTorch: the v3 fused program (counterpart of
+``ffmpeg_ht_tpu.models.assembly.make_v3_program``) and the v2 bucketed
+program (counterpart of ``_entropy_stage`` + ``_compiled_assembly`` of
+``ffmpeg_ht_tpu.models.decoder``).
 
-Per call, for F frames of one geometry:
+``V3Program``, per call, for F frames of one geometry:
 
   1. one HT cleanup launch over every codeblock lane (ops/ht_scan);
   2. dequant of the mu words (jpeg2000dec.c:2098-2181): reversible (5/3),
@@ -21,6 +23,12 @@ Per call, for F frames of one geometry:
   7. one packed uint8 / uint16 buffer (uint16 held as int16 bits) whose
      last element is the all-lanes ok flag.
 
+``BucketProgram`` runs the cleanup per bucket of same-shape codeblocks
+(plus SigProp / MagRef, ops/ht_refine, on refined buckets), the same
+dequant, a scatter of every lane into the flat coefficient buffer, the
+flat inverse DWT per plane, and the same tail (steps 6-7, shared in
+``_Program``).
+
 The assembly plan (``PrecPlan`` .. ``AssemblyPlan``, ``build_plan``) is
 copied verbatim from the reference module: numpy only, static per
 codestream geometry. Samples wider than 16 bits raise NotImplementedError.
@@ -37,7 +45,9 @@ from ffmpeg_ht_tpu_torch.codestream import markers as mk
 from ffmpeg_ht_tpu_torch.ops.dwt_torch import (dwt_decode_bands,
                                                dwt_decode_flat,
                                                dwt_poly_capable)
-from ffmpeg_ht_tpu_torch.ops.ht_scan import decode_cleanup_scan_dims
+from ffmpeg_ht_tpu_torch.ops.ht_refine import decode_refinement_scan
+from ffmpeg_ht_tpu_torch.ops.ht_scan import (decode_cleanup_scan_dims,
+                                             decode_cleanup_scan_sig)
 from ffmpeg_ht_tpu_torch.ops.mct_cuda import (dc_shift_clip, ict_writeframe,
                                               narrow, rct_writeframe)
 
@@ -231,81 +241,21 @@ def _compose_plane(ras, plane: PlanePlan, lane_off: int):
     return p
 
 
-class V3Program:
-    """The fused decode program for one geometry and frame count.
+class _Program:
+    """What the v3 and the v2 programs share: the geometry, the dequant of
+    the mu words and the MCT / DC shift / clip / pack tail."""
 
-    ``prog(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs, magb,
-    istep, scale97, fscale, pf_idx, pf_val) -> packed`` with the argument
-    names and layouts of the JAX program (models/fastpath.finish_v3).
-    Arrays carry frames * n_pad lanes, frame-major; pf_idx indexes the
-    frames' flat lane rasters and its pads point one past their end.
-    """
-
-    def __init__(self, plan: AssemblyPlan, geom_key: Tuple, qw: int,
-                 qh: int, ms_class: int, n_pad: int, frames: int,
-                 no_istep: bool = False):
+    def __init__(self, geom_key: Tuple, frames: int, no_istep: bool):
         (planes, borders, ndecs, mct_flags, tci, cbps, total,
          transform) = geom_key
         if cbps > 16:
             raise NotImplementedError(
                 f"{cbps}-bit samples do not fit the uint16 packed output")
-        # band-direct inverse DWT when every level of every plane is at
-        # least 8x8 (assembly.py:283-286); else the flat fallback
-        self.band_direct = all(
-            nd == 0 or dwt_poly_capable(
-                [[b[0][0], b[0][1]], [b[1][0], b[1][1]]], nd)
-            for b, nd in zip(borders, ndecs))
-        self.plan = plan
         self.planes, self.borders, self.ndecs = planes, borders, ndecs
         self.mct_flags, self.tci = mct_flags, tci
         self.cbps, self.total, self.transform = cbps, total, transform
-        self.qw, self.qh, self.ms_class = qw, qh, ms_class
-        self.n_pad, self.frames, self.no_istep = n_pad, frames, no_istep
+        self.frames, self.no_istep = frames, no_istep
         self.out_dtype = torch.uint8 if cbps <= 8 else torch.int16
-
-    def __call__(self, **args):
-        return self.pack(*self.decode_planes(**args))
-
-    def decode_planes(self, msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
-                      qws, qhs, magb, istep, scale97, fscale, pf_idx,
-                      pf_val):
-        """Stages 1-5: (per-frame tile-component planes after the inverse
-        DWT, in geometry order; per-lane ok)."""
-        mu, _sig, ok = decode_cleanup_scan_dims(
-            msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
-            self.qw, self.qh, self.ms_class)
-
-        coef = self._dequant(mu, magb, istep, scale97, fscale)
-
-        # host-decoded lanes: scatter into the lane rasters; pad entries
-        # address the trailing trash slot, which is sliced off
-        flat = torch.cat([coef.reshape(-1), coef.new_zeros(1)])
-        flat[pf_idx.long()] = pf_val.to(flat.dtype)
-        coef = flat[:-1].view(coef.shape)
-
-        outs = []
-        for f in range(self.frames):
-            off = f * self.n_pad
-            for plane_p, border, ndec in zip(self.plan.planes, self.borders,
-                                             self.ndecs):
-                b = [[border[0][0], border[0][1]],
-                     [border[1][0], border[1][1]]]
-                if not self.band_direct:
-                    plane = _compose_plane(coef, plane_p, off)
-                    if ndec > 0:
-                        plane = dwt_decode_flat(plane, b, ndec,
-                                                self.transform)
-                    outs.append(plane)
-                    continue
-                ll, lvls = plane_p.levels
-                plane = _mosaic_band(coef, ll, off)
-                if ndec > 0:
-                    bands = [tuple(_mosaic_band(coef, bb, off) for bb in lvl)
-                             for lvl in lvls]
-                    plane = dwt_decode_bands(plane, bands, b, ndec,
-                                             self.transform)
-                outs.append(plane)
-        return outs, ok
 
     def _dequant(self, mu, magb, istep, scale97, fscale):
         """Lane rasters of coefficients from the int32 bits of the uint32
@@ -369,3 +319,145 @@ class V3Program:
         # ok flag: inert and pad lanes pass trivially
         packed[F * total:].copy_(ok.all().reshape(1))
         return packed
+
+
+class V3Program(_Program):
+    """The fused decode program for one geometry and frame count.
+
+    ``prog(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs, magb,
+    istep, scale97, fscale, pf_idx, pf_val) -> packed`` with the argument
+    names and layouts of the JAX program (models/fastpath.finish_v3).
+    Arrays carry frames * n_pad lanes, frame-major; pf_idx indexes the
+    frames' flat lane rasters and its pads point one past their end.
+    """
+
+    def __init__(self, plan: AssemblyPlan, geom_key: Tuple, qw: int,
+                 qh: int, ms_class: int, n_pad: int, frames: int,
+                 no_istep: bool = False):
+        super().__init__(geom_key, frames, no_istep)
+        # band-direct inverse DWT when every level of every plane is at
+        # least 8x8 (assembly.py:283-286); else the flat fallback
+        self.band_direct = all(
+            nd == 0 or dwt_poly_capable(
+                [[b[0][0], b[0][1]], [b[1][0], b[1][1]]], nd)
+            for b, nd in zip(self.borders, self.ndecs))
+        self.plan = plan
+        self.qw, self.qh, self.ms_class = qw, qh, ms_class
+        self.n_pad = n_pad
+
+    def __call__(self, **args):
+        return self.pack(*self.decode_planes(**args))
+
+    def decode_planes(self, msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
+                      qws, qhs, magb, istep, scale97, fscale, pf_idx,
+                      pf_val):
+        """Stages 1-5: (per-frame tile-component planes after the inverse
+        DWT, in geometry order; per-lane ok)."""
+        mu, _sig, ok = decode_cleanup_scan_dims(
+            msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
+            self.qw, self.qh, self.ms_class)
+
+        coef = self._dequant(mu, magb, istep, scale97, fscale)
+
+        # host-decoded lanes: scatter into the lane rasters; pad entries
+        # address the trailing trash slot, which is sliced off
+        flat = torch.cat([coef.reshape(-1), coef.new_zeros(1)])
+        flat[pf_idx.long()] = pf_val.to(flat.dtype)
+        coef = flat[:-1].view(coef.shape)
+
+        outs = []
+        for f in range(self.frames):
+            off = f * self.n_pad
+            for plane_p, border, ndec in zip(self.plan.planes, self.borders,
+                                             self.ndecs):
+                b = [[border[0][0], border[0][1]],
+                     [border[1][0], border[1][1]]]
+                if not self.band_direct:
+                    plane = _compose_plane(coef, plane_p, off)
+                    if ndec > 0:
+                        plane = dwt_decode_flat(plane, b, ndec,
+                                                self.transform)
+                    outs.append(plane)
+                    continue
+                ll, lvls = plane_p.levels
+                plane = _mosaic_band(coef, ll, off)
+                if ndec > 0:
+                    bands = [tuple(_mosaic_band(coef, bb, off) for bb in lvl)
+                             for lvl in lvls]
+                    plane = dwt_decode_bands(plane, bands, b, ndec,
+                                             self.transform)
+                outs.append(plane)
+        return outs, ok
+
+
+class BucketProgram(_Program):
+    """The v2 decode program for one geometry and its buckets (counterpart
+    of ``_entropy_stage`` plus ``_compiled_assembly``, decoder.py:426-606).
+
+    ``prog(pf_idx, pf_val, bucket_args) -> packed``; `shapes` holds a
+    ``(qw, qh, w, h, ms_class, refined)`` tuple per bucket and
+    `bucket_args` that bucket's lane arrays (models/fastpath.
+    finish_buckets, or decoder._bucket_arrays) on the device, ``nreal``
+    an int. Per bucket: the HT cleanup, plus SigProp / MagRef on refined
+    buckets (ops/ht_refine), and the dequant; then every lane scattered
+    into one flat buffer of ``total + 1`` elements after the sparse
+    prefill of the host-decoded lanes (pad lanes, samples outside a
+    codeblock and the prefill's pad go to the trailing trash slot); the
+    inverse DWT of every tile-component plane (``dwt_decode_flat``); the
+    v3 program's MCT / DC shift / clip / pack tail. A batch of F frames
+    is one program over the frame-replicated geometry."""
+
+    def __init__(self, shapes, geom_key: Tuple):
+        super().__init__(geom_key, frames=1, no_istep=False)
+        self.shapes = tuple(shapes)
+
+    def __call__(self, pf_idx, pf_val, bucket_args):
+        return self.pack(*self.decode_planes(pf_idx, pf_val, bucket_args))
+
+    def entropy(self, bucket_args):
+        """(mu, ok) of every bucket (``_entropy_stage``)."""
+        mus, oks = [], []
+        for (qw, qh, w, h, msc, refined), a in zip(self.shapes, bucket_args):
+            mu, sig, ok = decode_cleanup_scan_sig(
+                a["msw"], a["melw"], a["vlcw"], a["pLSB"], a["maxbp"],
+                a["ms_lim"], a["mel_lim"], qw, qh, msc, a["nreal"])
+            if refined:
+                mu = decode_refinement_scan(
+                    mu, sig, a["spw"], a["mrw"], a["pLSB"], a["has_sp"],
+                    a["has_mr"], a["causal"], qw, qh, w, h)
+            mus.append(mu)
+            oks.append(ok)
+        return mus, oks
+
+    def decode_planes(self, pf_idx, pf_val, bucket_args):
+        """(tile-component planes after the inverse DWT, in geometry order;
+        the lanes' ok, pad lanes masked true)."""
+        mus, oks = self.entropy(bucket_args)
+        dt = torch.float32 if self.transform == mk.DWT97 else torch.int32
+        flat = torch.zeros(self.total + 1, dtype=dt, device=pf_idx.device)
+        flat[pf_idx.long()] = pf_val.to(dt)
+        for (qw, qh, w, h, _msc, _r), mu, a in zip(self.shapes, mus,
+                                                   bucket_args):
+            coef = self._dequant(mu, a["magb"], a["istep"], a["scale97"],
+                                 a["fscale"])
+            y = torch.arange(2 * qh, device=mu.device)[None, :, None]
+            x = torch.arange(2 * qw, device=mu.device)[None, None, :]
+            base = a["dest"].long()[:, None, None]
+            idx = base + y * a["stride"].long()[:, None, None] + x
+            idx = torch.where((base < 0) | (y >= h) | (x >= w), self.total,
+                              idx)
+            flat[idx.reshape(-1)] = coef.reshape(-1).to(dt)
+        outs = []
+        for (off, ph, pw), border, ndec in zip(self.planes, self.borders,
+                                               self.ndecs):
+            plane = flat[off:off + ph * pw].view(ph, pw)
+            if ndec > 0:
+                b = [[border[0][0], border[0][1]],
+                     [border[1][0], border[1][1]]]
+                plane = dwt_decode_flat(plane, b, ndec, self.transform)
+            outs.append(plane)
+        ok = torch.cat([torch.ones(1, dtype=torch.bool, device=flat.device)]
+                       + [ok | (torch.arange(len(ok), device=ok.device)
+                                >= a["nreal"])
+                          for ok, a in zip(oks, bucket_args)])
+        return outs, ok

@@ -3,33 +3,45 @@
 
 The host tier is the port's own copy of the reference's: codestream
 parse, the flat fast lane (native T2 parse, lane building, assembly
-plan), the host oracle and the frame writer. The device program is
-``models/assembly.V3Program``: the v3 fused fast lane of the reference
-package, for HTONLY streams with any of the three transforms (reversible
-5/3, integer 9/7 with ``bitexact=True``, float 9/7 with
-``bitexact=False``), band-direct or through the flat-DWT fallback.
+plan), the object path's bucketing (``_Bucket`` .. ``_bucket_arrays``
+below, copied verbatim apart from the imports), the host oracle and the
+frame writer. Two device programs, both for HTONLY streams with any of
+the three transforms (reversible 5/3, integer 9/7 with ``bitexact=True``,
+float 9/7 with ``bitexact=False``):
 
-Routing follows the reference ``Decoder.decode``:
+- ``models/assembly.V3Program``, the v3 fused fast lane: one cleanup
+  launch over every codeblock, band mosaics, band-direct or flat DWT;
+- ``models/assembly.BucketProgram``, the v2 bucketed path: codeblocks
+  bucketed by shape and stream length, the cleanup per bucket plus
+  SigProp / MagRef on refined buckets, a scatter into a flat buffer, the
+  flat DWT.
+
+Routing follows the reference ``Decoder``:
 
 - streams the reference hands to the host oracle (legacy MQ codeblocks,
   ROI, unsupported transforms, ...) go to the same
   ``host_decoder.decode_frame``;
-- v3-eligible streams (``fast_profile``, an assembly plan, no refinement
-  lanes, maxbp <= 25) run the V3Program on the device;
-- streams the reference decodes on its device by another route (the v2
-  bucketed path, maxbp > 25) raise NotImplementedError naming their
-  ROADMAP.md item. They are never decoded on the host in their place.
+- fast-profile streams take the flat fast lane: the V3Program when the
+  geometry has an assembly plan and the frame has no refinement lanes and
+  no lane with maxbp > 25, else the BucketProgram on the lanes that
+  ``fastpath.build_bucket_args`` / ``finish_buckets`` build;
+- everything else on the device (vertically stripe-causal codeblocks,
+  ``max_layers``, a failed native parse) takes the object path: T2 into
+  codeblock objects, ``_build_batch``, the BucketProgram.
 
-``decode_batch`` runs same-geometry frames as one F-frame program on one
-device; ``bench_resident`` times that program with its inputs already on
-the device. Not ported: ``reduction_factor``, ``max_layers``, the wire
-pack and sharding ``decode_batch`` over several devices (ROADMAP.md).
+In both v2 routes, codeblocks under ``_HOST_AREA`` samples and those
+with more than 25 magnitude bitplanes decode on the host oracle and
+reach the device as a sparse prefill. ``decode_batch`` runs same-geometry
+frames as one program (either kind); ``bench_resident`` times the
+V3Program only, as in the reference. Not ported: the wire pack and
+sharding ``decode_batch`` over several devices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -42,16 +54,17 @@ from ffmpeg_ht_tpu_torch.models import assembly as ASM
 from ffmpeg_ht_tpu_torch.models import fastpath as FP
 from ffmpeg_ht_tpu_torch.models import host_decoder
 from ffmpeg_ht_tpu_torch.models import pixfmt as pf
-from ffmpeg_ht_tpu_torch.models.assembly import V3Program
-from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
+from ffmpeg_ht_tpu_torch.models.assembly import BucketProgram, V3Program
+from ffmpeg_ht_tpu_torch.models.fastpath import (_Geometry, finish_v3_numpy,
+                                                 to_torch)
 from ffmpeg_ht_tpu_torch.models.host_decoder import DecodedFrame
 from ffmpeg_ht_tpu_torch.utils.device import resolve_device
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
-_V2_PATH = ("the stream needs the v2 bucketed device path (refinement "
-            "passes, unaligned band origins or a non-native parse), not "
-            "ported yet: ROADMAP.md, What remains item 1, the v2 path "
-            "with ht_refine")
+_LANE_PAD = 8          # lane count rounded up to a multiple of this
+_HOST_AREA = 256       # codeblocks smaller than this decode on the host
+                       # oracle (edge slivers and low-resolution bands),
+                       # as in the reference
 _MAX_GEOMS = 32
 _DEVICE_TRANSFORMS = (mk.DWT53, mk.DWT97_INT, mk.DWT97)
 
@@ -88,24 +101,339 @@ def _supported_on_device(hdr, tiles: List[Tile]) -> bool:
     return True
 
 
+@dataclass
+class _Bucket:
+    w: int
+    h: int
+    rows: List[np.ndarray] = field(default_factory=list)
+    lcup: List[int] = field(default_factory=list)
+    pcup: List[int] = field(default_factory=list)
+    pLSB: List[int] = field(default_factory=list)
+    maxbp: List[int] = field(default_factory=list)
+    magb: List[int] = field(default_factory=list)
+    istep: List[int] = field(default_factory=list)
+    scale97: List[int] = field(default_factory=list)   # int97 dequant scale
+    fscale: List[float] = field(default_factory=list)  # float dequant scale
+    dest: List[int] = field(default_factory=list)    # flat index of (y0,x0)
+    stride: List[int] = field(default_factory=list)  # plane row stride
+    dref: List[tuple] = field(default_factory=list)  # (Dref bytes, lref)
+    zblk: List[int] = field(default_factory=list)    # 1..3 HT passes
+    causal: List[int] = field(default_factory=list)  # CBLK_VSC per lane
+
+    @property
+    def refined(self) -> bool:
+        return any(z > 1 for z in self.zblk)
+
+
+def _build_batch(hdr, tiles: List[Tile]):
+    """Walk the T2 result into shape buckets + a flat-plane geometry."""
+    planes = []
+    borders = []
+    ndecs = []
+    tile_comp_index = []
+    offset = 0
+    for tile in tiles:
+        idxs = []
+        for compno, comp in enumerate(tile.comp):
+            cw = comp.coord[0][1] - comp.coord[0][0]
+            ch = comp.coord[1][1] - comp.coord[1][0]
+            idxs.append(len(planes))
+            planes.append((offset, ch, cw))
+            borders.append(((comp.coord[0][0], comp.coord[0][1]),
+                            (comp.coord[1][0], comp.coord[1][1])))
+            ndecs.append(tile.codsty[compno].nreslevels2decode - 1)
+            offset += ch * cw
+        tile_comp_index.append(idxs)
+    total = offset
+
+    transform = tiles[0].codsty[0].transform if tiles else mk.DWT53
+    buckets: Dict[Tuple[int, int], _Bucket] = {}
+    prefill = np.zeros(total + 1,
+                       np.float32 if transform == mk.DWT97 else np.int32)
+    for tileno, tile in enumerate(tiles):
+        for compno, comp in enumerate(tile.comp):
+            qntsty = tile.qntsty[compno]
+            poff, _, pstride = (planes[tile_comp_index[tileno][compno]][0],
+                                0, planes[tile_comp_index[tileno][compno]][2])
+            subbandno = 0
+            # lowres: reslevels >= nreslevels2decode were parsed (their
+            # packets occupy the stream) but decode no coefficients —
+            # their dests lie outside the reduced plane
+            # (jpeg2000dec.c:509-520)
+            n2d = tile.codsty[compno].nreslevels2decode
+            for rl in comp.reslevel[:n2d]:
+                for bandno, band in enumerate(rl.band):
+                    magb = qntsty.expn[subbandno] + qntsty.nguardbits - 1
+                    subbandno += 1
+                    if (band.coord[0][0] >= band.coord[0][1]
+                            or band.coord[1][0] >= band.coord[1][1]):
+                        continue
+                    for prec in band.prec:
+                        for cblk in prec.cblk:
+                            w, h = cblk.width, cblk.height
+                            if w <= 0 or h <= 0 or cblk.npasses == 0:
+                                continue
+                            lcup = cblk.pass_lengths[0]
+                            if lcup < 2:
+                                # error parity with the host oracle
+                                # (ht_dec.py) and the reference
+                                # (jpeg2000htdec.c:1252-1256): a frame must
+                                # never silently decode to different pixels
+                                # depending on which path ran
+                                raise InvalidData("cleanup pass length < 2")
+                            x = cblk.coord[0][0] - band.coord[0][0]
+                            y = cblk.coord[1][0] - band.coord[1][0]
+                            dest = poff + y * pstride + x
+                            num_rempass = cblk.npasses % 3
+                            num_plhd = (cblk.npasses - num_rempass
+                                        if num_rempass
+                                        else cblk.npasses - 3)
+                            z_blk = cblk.npasses - num_plhd
+                            # placeholder passes shift the bitplane:
+                            # S_blk = p0 + zbp (ht_dec.py:611,627)
+                            zbp_eff = cblk.zbp + num_plhd // 3
+                            causal = bool(cblk.modes & mk.CBLK_VSC)
+                            if w * h < _HOST_AREA \
+                                    or zbp_eff + 1 > 25:
+                                # tiny edge slivers and extreme-bitplane
+                                # blocks (the kernel's MagSgn reads cap
+                                # at 25 bits/sample):
+                                # scalar host decode into the prefill
+                                from ffmpeg_ht_tpu_torch.ops import dequant as dq
+                                from ffmpeg_ht_tpu_torch.ops import ht_dec
+                                t1 = ht_dec.decode_htj2k(
+                                    bytes(cblk.data), cblk.npasses,
+                                    cblk.zbp, cblk.pass_lengths, w, h,
+                                    magb, 0, int(causal))
+                                if transform == mk.DWT97:
+                                    blk = dq.dequant_float(
+                                        t1, band.f_stepsize, magb)
+                                elif transform == mk.DWT97_INT:
+                                    blk = dq.dequant_int_97(
+                                        t1, band.f_stepsize, magb)
+                                else:
+                                    blk = dq.dequant_int(
+                                        t1, band.i_stepsize, magb)
+                                for yy in range(h):
+                                    s = dest + yy * pstride
+                                    prefill[s:s + w] = blk[yy]
+                                continue
+                            buf = bytearray(cblk.data[:lcup])
+                            if len(buf) < lcup:
+                                buf.extend(b"\x00" * (lcup - len(buf)))
+                            scup = ((buf[lcup - 1] << 4)
+                                    + (buf[lcup - 2] & 0x0F))
+                            if scup < 2 or scup > lcup or scup > 4079:
+                                # parity with ht_dec.py / the reference
+                                # (jpeg2000htdec.c:1265-1273)
+                                raise InvalidData(f"invalid Scup {scup}")
+                            buf[lcup - 1] = 0xFF
+                            buf[lcup - 2] |= 0x0F
+                            zbp = zbp_eff
+                            # bucket by shape AND a pow2 stream-length
+                            # class: lanes of similar length pack
+                            # together, keeping the (N, W) upload close
+                            # to the real content size
+                            wc = 16
+                            need = (8 * lcup + 96) // 32
+                            while wc < need:
+                                wc *= 2
+                            key = (w, h, wc)
+                            b = buckets.setdefault(key, _Bucket(w, h))
+                            b.rows.append(np.frombuffer(bytes(buf),
+                                                        np.uint8))
+                            b.lcup.append(lcup)
+                            b.pcup.append(lcup - scup)
+                            b.pLSB.append(30 - zbp)
+                            b.maxbp.append(zbp + 1)
+                            b.magb.append(magb)
+                            b.istep.append(band.i_stepsize)
+                            from ffmpeg_ht_tpu_torch.ops.dequant import int97_scale
+                            b.scale97.append(
+                                int97_scale(band.f_stepsize, magb)
+                                if transform == mk.DWT97_INT else 0)
+                            b.fscale.append(float(
+                                np.float32(band.f_stepsize)
+                                / np.float32(1 << (31 - magb)))
+                                if transform == mk.DWT97 else 0.0)
+                            b.dest.append(dest)
+                            b.stride.append(pstride)
+                            b.zblk.append(z_blk)
+                            b.causal.append(int(causal))
+                            if z_blk > 1:
+                                lref = cblk.pass_lengths[1]
+                                b.dref.append(
+                                    (bytes(cblk.data[lcup:lcup + lref]),
+                                     lref))
+                            else:
+                                b.dref.append((b"", 0))
+
+    geom = _Geometry(planes=planes, borders=tuple(borders),
+                     ndecs=tuple(ndecs),
+                     mct=tuple(bool(t.codsty[0].mct) for t in tiles),
+                     tile_comp_index=tile_comp_index,
+                     cbps=hdr.siz.components[0].depth, total=total,
+                     transform=transform)
+    return geom, buckets, prefill
+
+
+def _replicate_geometry(g0: _Geometry, F: int) -> _Geometry:
+    """Frame-replicated geometry: F frames side by side in the flat
+    buffer (decode_batch lane merging)."""
+    planes = []
+    borders = []
+    ndecs = []
+    mct = []
+    tci = []
+    for f in range(F):
+        pbase = len(planes)
+        for (off, ph, pw) in g0.planes:
+            planes.append((off + f * g0.total, ph, pw))
+        borders.extend(g0.borders)
+        ndecs.extend(g0.ndecs)
+        mct.extend(g0.mct)
+        for idxs in g0.tile_comp_index:
+            tci.append(tuple(i + pbase for i in idxs))
+    return _Geometry(planes=planes, borders=tuple(borders),
+                     ndecs=tuple(ndecs), mct=tuple(mct),
+                     tile_comp_index=[list(t) for t in tci],
+                     cbps=g0.cbps, total=F * g0.total,
+                     transform=g0.transform)
+
+
+def _pad(n, q):
+    return ((n + q - 1) // q) * q
+
+
+def _pow2(n: int, lo: int) -> int:
+    v = lo
+    while v < n:
+        v *= 2
+    return v
+
+
+def _bucket_arrays(b: _Bucket):
+    """Pack a bucket into padded device arrays.
+
+    The byte rows are flattened into dense uint32 bit-stream words on the
+    host (ops/ht_batch.prepare_streams); lane count and word width are
+    padded to powers of two so the jitted entropy kernel's executable is
+    reused across frames and geometries.
+    """
+    from ffmpeg_ht_tpu_torch.ops.ht_batch import prepare_streams_with_limits
+
+    n = len(b.rows)
+    npad = _pow2(n, _LANE_PAD)
+    lmax = max(max(len(r) for r in b.rows), 4)
+    data = np.zeros((npad, lmax), np.uint8)
+    for i, r in enumerate(b.rows):
+        data[i, :len(r)] = r
+    lcups = np.full(npad, 2, np.int64)
+    lcups[:n] = b.lcup
+    pcups = np.zeros(npad, np.int64)
+    pcups[:n] = b.pcup
+    msw, melw, vlcw, ms_lim, mel_lim = prepare_streams_with_limits(
+        data, lcups, pcups)
+
+    def vec(vals, fill, dtype=np.int32):
+        a = np.full(npad, fill, dtype)
+        a[:n] = vals
+        return a
+
+    extra = {}
+    if b.refined:
+        from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_magref_stream,
+                                                prepare_sigprop_stream)
+        # information-theoretic caps keep malformed lref from blowing up
+        # the byte matrices: SigProp consumes <= 2 bits/sample (<= 8192),
+        # MagRef <= 1 bit/sample (<= 4096); at the worst 7 payload
+        # bits/byte these prefixes/suffixes cover every reachable bit
+        SP_CAP, MR_CAP = FP.SP_CAP, FP.MR_CAP
+        lsp = np.zeros(npad, np.int64)
+        lmr = np.zeros(npad, np.int64)
+        spmax = max(min(lr, SP_CAP) for _, lr in b.dref)
+        mrmax = max(min(lr, MR_CAP) for _, lr in b.dref)
+        dsp = np.zeros((npad, max(spmax, 4)), np.uint8)
+        dmr = np.zeros((npad, max(mrmax, 4)), np.uint8)
+        for i, (dr, lr) in enumerate(b.dref):
+            ls = min(lr, SP_CAP)
+            row = np.frombuffer(dr[:ls], np.uint8)
+            dsp[i, :len(row)] = row
+            lsp[i] = ls
+            lm = min(lr, MR_CAP)
+            # suffix: the backward reader starts at byte lref-1; bytes
+            # past the stored data are zeros (oracle zero-extension)
+            tail = dr[max(lr - MR_CAP, 0):lr]
+            trow = np.frombuffer(tail, np.uint8)
+            # left-align: a truncated stream is missing TAIL bytes, which
+            # must read as zeros (oracle end-of-stream zero-extension)
+            dmr[i, :len(trow)] = trow
+            lmr[i] = lm
+        extra = dict(
+            spw=prepare_sigprop_stream(dsp, lsp),
+            mrw=prepare_magref_stream(dmr, lmr),
+            has_sp=vec([z >= 2 for z in b.zblk], 0, bool),
+            has_mr=vec([z >= 3 for z in b.zblk], 0, bool),
+            causal=vec(b.causal, 0, bool),
+        )
+
+    return dict(
+        msw=msw,
+        melw=melw,
+        vlcw=vlcw,
+        ms_lim=ms_lim,
+        mel_lim=mel_lim,
+        pLSB=vec(b.pLSB, 2),
+        **extra,
+        maxbp=vec(b.maxbp, 32),
+        magb=vec(b.magb, 8),
+        istep=vec(b.istep, 32768),
+        scale97=vec(b.scale97, 0),
+        fscale=vec(b.fscale, 0.0, np.float32),
+        dest=vec(b.dest, -1),      # -1 -> trash slot
+        stride=vec(b.stride, 0),
+        nreal=n,                   # host-side lane count (padding excluded)
+    ), n
+
+
 class Decoder:
-    """HTJ2K decoder whose device program runs on `device`.
+    """HTJ2K decoder whose device programs run on `device`.
 
     `device` is required to exist: "cuda" without a usable card raises,
-    and nothing falls back to the CPU. decode(data) -> DecodedFrame, at
-    full resolution. `bitexact` picks the irreversible path as in the
-    reference ``Decoder(bitexact=...)``: True decodes 9/7 streams with the
-    integer 9/7 (byte-identical to ``ffmpeg -flags +bitexact``), False
-    with the float 9/7 (within 1 LSB). The parse records the choice in
-    each codestream's transform, which the geometry cache key holds.
+    and nothing falls back to the CPU. decode(data) -> DecodedFrame.
+    `bitexact` picks the irreversible path as in the reference
+    ``Decoder(bitexact=...)``: True decodes 9/7 streams with the integer
+    9/7 (byte-identical to ``ffmpeg -flags +bitexact``), False with the
+    float 9/7 (within 1 LSB). The parse records the choice in each
+    codestream's transform, which the geometry cache key holds.
+    `reduction_factor` decodes at 1 / 2**r resolution (``-lowres``) and
+    `max_layers` keeps the first quality layers only (0: all), as the
+    reference's options do.
     """
 
-    def __init__(self, device="cuda", bitexact: bool = True):
+    def __init__(self, device="cuda", bitexact: bool = True,
+                 reduction_factor: int = 0, max_layers: int = 0):
         self.device = resolve_device(device)
         self.bitexact = bitexact
+        self.reduction_factor = reduction_factor
+        self.max_layers = max_layers
         self._geoms = {}        # geometry fingerprint -> FlatGeometry
         self.v3_frames = 0      # frames decoded by the V3Program
+        self.v2_frames = 0      # frames decoded by the BucketProgram
         self.host_frames = 0    # frames routed to the host oracle
+
+    def _parse(self, data: bytes):
+        return parse_codestream(data, bitexact=self.bitexact,
+                                reduction_factor=self.reduction_factor)
+
+    def _parse_tiles(self, hdr) -> List[Tile]:
+        """T2 into codeblock objects (the object path)."""
+        tiles = []
+        for tileno in range(len(hdr.tiles)):
+            tile = init_tile(hdr, tileno)
+            decode_tile_packets(hdr, tileno, tile, self.max_layers)
+            tiles.append(tile)
+        return tiles
 
     def decode(self, data: bytes) -> DecodedFrame:
         return self.decode_async(data)()
@@ -113,29 +441,28 @@ class Decoder:
     def decode_async(self, data: bytes):
         """Parse, upload and dispatch on the current CUDA stream without
         waiting for the device's earlier work (the lane arrays are staged
-        in page-locked memory and copied asynchronously); returns a zero-argument callable that
-        waits for the packed output and builds the DecodedFrame:
+        in page-locked memory and copied asynchronously); returns a
+        zero-argument callable that waits for the packed output and builds
+        the DecodedFrame:
 
             pending = [dec.decode_async(s) for s in streams]
             frames = [p() for p in pending]
         """
-        hdr = parse_codestream(data, bitexact=self.bitexact)
+        hdr = self._parse(data)
         fast = self._fast_launch(hdr)
         if fast is not None:
             fg, packed = fast
             fetch = self._start_fetch(packed)
-            self.v3_frames += 1
             return lambda: self._finish(hdr, fg.tiles, fg.geom, fetch())
-        tiles = []
-        for tileno in range(len(hdr.tiles)):
-            tile = init_tile(hdr, tileno)
-            decode_tile_packets(hdr, tileno, tile, 0)
-            tiles.append(tile)
+        tiles = self._parse_tiles(hdr)
         if not _supported_on_device(hdr, tiles):
-            frame = host_decoder.decode_frame(data, bitexact=self.bitexact)
+            frame = host_decoder.decode_frame(
+                data, bitexact=self.bitexact,
+                reduction_factor=self.reduction_factor,
+                max_layers=self.max_layers)
             self.host_frames += 1
             return lambda: frame
-        raise NotImplementedError(_V2_PATH)
+        return self._device_decode(hdr, tiles)
 
     def decode_stream(self, streams, depth: int = 3):
         """Pipelined decode of a frame sequence (generator): up to `depth`
@@ -160,16 +487,53 @@ class Decoder:
         return fg
 
     def decode_batch(self, streams) -> List[DecodedFrame]:
-        """Decode many frames; same-geometry fast-profile streams run as
-        ONE V3Program of F frames (the frame axis concatenates into the
-        lane axis: one launch of each kernel for the batch). Anything else
-        decodes stream by stream through ``decode`` (decoder.py:758-770),
-        and so still raises for streams that need the v2 path."""
-        hdrs = [parse_codestream(d, bitexact=self.bitexact) for d in streams]
+        """Decode many frames; same-geometry streams run as ONE device
+        program (the frame axis concatenates into the lane axis): the
+        V3Program of F frames, or the BucketProgram over the
+        frame-replicated geometry with the frames' buckets merged
+        (decoder.py:712-802). Anything else decodes stream by stream
+        through ``decode``."""
+        if not streams:
+            return []
+        hdrs = [self._parse(d) for d in streams]
         fast = self._fast_batch(hdrs)
         if fast is not None:
             return fast
-        return [self.decode(d) for d in streams]
+        parsed = [(hdr, self._parse_tiles(hdr), data)
+                  for hdr, data in zip(hdrs, streams)]
+        if not all(_supported_on_device(h, t) for h, t, _ in parsed):
+            return [self.decode(d) for _, _, d in parsed]
+
+        geoms, bucket_maps, prefills = [], [], []
+        for hdr, tiles, _ in parsed:
+            g, b, p = _build_batch(hdr, tiles)
+            geoms.append(g)
+            bucket_maps.append(b)
+            prefills.append(p)
+
+        g0 = geoms[0]
+        if any(g.key() != g0.key() for g in geoms[1:]):
+            return [self.decode(d) for _, _, d in parsed]
+
+        F = len(parsed)
+        total = g0.total
+        # merge buckets: dest indices shift by f*total per frame
+        merged: Dict[Tuple[int, int], _Bucket] = {}
+        for f, bmap in enumerate(bucket_maps):
+            for key, b in bmap.items():
+                m = merged.setdefault(key, _Bucket(b.w, b.h))
+                for fld in ("rows", "lcup", "pcup", "pLSB", "maxbp", "magb",
+                            "istep", "scale97", "fscale", "stride",
+                            "dref", "zblk", "causal"):
+                    getattr(m, fld).extend(getattr(b, fld))
+                m.dest.extend(d + f * total for d in b.dest)
+        prefill = np.concatenate([p[:-1] for p in prefills]
+                                 + [np.zeros(1, prefills[0].dtype)])
+
+        gm = _replicate_geometry(g0, F)
+        host = self._start_fetch(self._dispatch(gm, merged, prefill))()
+        self.v2_frames += F
+        return self._split_frames([(h, t) for h, t, _ in parsed], g0, host)
 
     def _batch_geom(self, hdrs):
         """The FlatGeometry that fast-profile streams of one geometry
@@ -180,18 +544,30 @@ class Decoder:
         return self._fast_geom(hdrs[0])
 
     def _fast_batch(self, hdrs):
-        """decode_batch's one-program lane (decoder.py:1128-1174), or None
-        when the streams leave the fast profile or one geometry."""
+        """decode_batch's flat-lane program (decoder.py:1128-1174): the
+        V3Program of the F frames, else the BucketProgram on ``_v2_args``;
+        None when the streams leave the fast profile or one geometry."""
+        if self.max_layers:
+            return None
         fg = self._batch_geom(hdrs)
         if fg is None:
             return None
         cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs]
         if any(c is None for c in cols_list):
             return None
-        prog, args = self._v3_program(fg, cols_list)
-        host = self._start_fetch(prog(**args))()
-        self.v3_frames += len(hdrs)
-        return self._split_frames(hdrs, fg.tiles, fg.geom, host)
+        F = len(hdrs)
+        v3 = self._v3_program(fg, cols_list)
+        if v3 is not None:
+            prog, args = v3
+            packed = prog(**args)
+            self.v3_frames += F
+        else:
+            geom, fin, _accum = self._v2_args(fg, cols_list)
+            packed = self._dispatch_args(geom, *fin)
+            self.v2_frames += F
+        host = self._start_fetch(packed)()
+        return self._split_frames([(h, fg.tiles) for h in hdrs], fg.geom,
+                                  host)
 
     def bench_resident(self, streams, n_it: int = 10, reps: int = 3):
         """Device-resident decode rate for same-geometry streams
@@ -203,19 +579,20 @@ class Decoder:
         device sustains without the host parse and the output fetch.
         Returns {"fps", "ms_per_frame", "frames_merged"} for the best
         repetition; raises ValueError when the streams leave the fused
-        fast lane."""
-        hdrs = [parse_codestream(s, bitexact=self.bitexact)
-                for s in streams]
+        fast lane (the v2 path has no resident form, as in the
+        reference)."""
+        hdrs = [self._parse(s) for s in streams]
         fg = self._batch_geom(hdrs)
         cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs] if fg \
             else [None]
         if any(c is None for c in cols_list):
             raise ValueError("streams not v3-capable (fast profile, one "
                              "shared geometry, native parse)")
-        try:
-            prog, args = self._v3_program(fg, cols_list)
-        except NotImplementedError as e:
-            raise ValueError(f"streams not v3-capable: {e}") from e
+        v3 = self._v3_program(fg, cols_list)
+        if v3 is None:
+            raise ValueError("streams not v3-capable (assembly plan, no "
+                             "refinement lanes, maxbp <= 25)")
+        prog, args = v3
         sync = torch.cuda.synchronize if self.device.type == "cuda" \
             else (lambda: None)
         prog(**args)                                  # warm-up
@@ -232,29 +609,53 @@ class Decoder:
                 "frames_merged": F}
 
     def _fast_launch(self, hdr):
-        """(fg, packed) for a fast-profile stream, None when the stream
-        leaves the flat fast lane (the object path decides then)."""
-        if not FP.fast_profile(hdr):
+        """(fg, packed) for a fast-profile stream: the V3Program, else the
+        BucketProgram on ``build_bucket_args`` lanes (decoder.py:1054-1072);
+        None when the stream leaves the flat fast lane (the object path
+        decides then)."""
+        if self.max_layers or not FP.fast_profile(hdr):
             return None
         fg = self._fast_geom(hdr)
         cols = FP.parse_frame_flat(hdr, fg)
         if cols is None:
             return None
-        prog, args = self._v3_program(fg, [cols])
-        return fg, prog(**args)
+        v3 = self._v3_program(fg, [cols])
+        if v3 is not None:
+            prog, args = v3
+            self.v3_frames += 1
+            return fg, prog(**args)
+        geom, fin, _accum = self._v2_args(fg, [cols])
+        packed = self._dispatch_args(geom, *fin)
+        self.v2_frames += 1
+        return fg, packed
+
+    def _v2_args(self, fg, cols_list):
+        """The v2 counterpart of ``_v3_program`` for same-geometry frames
+        (decoder.py:1152-1163): (the frame-replicated geometry, its
+        ``finish_buckets`` quadruple (shapes, bucket_args, pf_idx, pf_val)
+        as numpy arrays, the ``build_bucket_args`` accumulation it came
+        from). Frame f's dests are shifted by f * total."""
+        F, total = len(cols_list), fg.geom.total
+        accum = None
+        for f, cols in enumerate(cols_list):
+            accum = FP.build_bucket_args(fg, cols, dest_shift=f * total,
+                                         prev=accum)
+        return (_replicate_geometry(fg.geom, F),
+                FP.finish_buckets(accum, F * total), accum)
 
     def _v3_program(self, fg, cols_list):
         """(the cached V3Program for these frames, its arguments on the
-        device); raises NotImplementedError when they need the v2 path."""
+        device), or None when they need the v2 path: no assembly plan, no
+        codeblocks, refinement lanes or a lane with maxbp > 25."""
         if fg.v3_plan is None:
             fg.v3_plan = ASM.build_plan(fg) or False
         if fg.v3_plan is False or fg.ncblks == 0:
-            raise NotImplementedError(_V2_PATH)
+            return None
         frames = []
         for cols in cols_list:
             fc = FP.build_v3_frame(fg, cols)
             if fc is None:
-                raise NotImplementedError(_V2_PATH)
+                return None
             frames.append(fc)
         mb = 1
         for fc in frames:
@@ -262,10 +663,7 @@ class Decoder:
             if devl.any():
                 mb = max(mb, int(fc["maxbp"][devl].max()))
         if mb > 25:
-            raise NotImplementedError(
-                "codeblocks with maxbp > 25 need the v2 path, not ported "
-                "yet: ROADMAP.md, What remains item 1, the v2 path with "
-                "ht_refine")
+            return None
         ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
         args, F = finish_v3_numpy(fg, frames, fg.geom.total)
         # lossless frames: istep is uniformly the identity 32768
@@ -279,6 +677,55 @@ class Decoder:
                              no_istep=no_istep)
             fg.v3_progs[key] = prog
         return prog, {k: to_torch(v, self.device) for k, v in args.items()}
+
+    def _dispatch(self, geom: _Geometry, buckets, prefill):
+        """Pack the object path's buckets and run the BucketProgram (no
+        host sync; decoder.py:938-970): lane arrays per bucket in key
+        order, and the host-decoded samples as a sparse prefill."""
+        keys = sorted(buckets.keys())
+        shapes, bucket_args = [], []
+        for key in keys:
+            args, _n = _bucket_arrays(buckets[key])
+            w, h = key[0], key[1]
+            # MagSgn budget class: must bound every real lane's maxbp
+            # (blocks > 25 went to host)
+            mb = max(buckets[key].maxbp)
+            ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
+            shapes.append((-(-w // 2), -(-h // 2), w, h, ms_class,
+                           buckets[key].refined))
+            bucket_args.append(args)
+        nz = np.nonzero(prefill[:-1])[0]
+        if len(nz):
+            pf_idx = nz.astype(np.int32)
+            pf_val = prefill[nz]
+        else:
+            pf_idx = np.array([geom.total], np.int32)
+            pf_val = np.zeros(1, prefill.dtype)
+        return self._dispatch_args(geom, shapes, bucket_args, pf_idx, pf_val)
+
+    def _dispatch_args(self, geom: _Geometry, shapes, bucket_args, pf_idx,
+                       pf_val):
+        """The BucketProgram on prepacked numpy bucket arrays: upload, then
+        entropy + assembly (decoder.py:972-981)."""
+        up = lambda v: to_torch(v, self.device) \
+            if isinstance(v, np.ndarray) else v
+        prog = BucketProgram(shapes, geom.key())
+        return prog(up(pf_idx), up(pf_val),
+                    [{k: up(v) for k, v in a.items()} for a in bucket_args])
+
+    def _launch(self, hdr, tiles):
+        """Object path: bucket the codeblocks, upload, dispatch; no host
+        sync. Returns (geom, packed output on the device)."""
+        geom, buckets, prefill = _build_batch(hdr, tiles)
+        return geom, self._dispatch(geom, buckets, prefill)
+
+    def _device_decode(self, hdr, tiles):
+        """The object path of ``decode_async``: launch, queue the fetch and
+        return the callable that finishes the frame."""
+        geom, packed = self._launch(hdr, tiles)
+        fetch = self._start_fetch(packed)
+        self.v2_frames += 1
+        return lambda: self._finish(hdr, tiles, geom, fetch())
 
     def _start_fetch(self, packed):
         """Queue the device-to-host copy of the packed output behind the
@@ -296,25 +743,26 @@ class Decoder:
         return fetch
 
     def _finish(self, hdr, tiles, geom, packed) -> DecodedFrame:
-        return self._split_frames([hdr], tiles, geom, packed)[0]
+        return self._split_frames([(hdr, tiles)], geom, packed)[0]
 
-    def _split_frames(self, hdrs, tiles, geom, packed) -> List[DecodedFrame]:
-        """The packed output of len(hdrs) frames of one geometry ->
-        DecodedFrames; raises InvalidData when the ok flag is clear."""
+    def _split_frames(self, frames, geom, packed) -> List[DecodedFrame]:
+        """The packed output of len(frames) (hdr, tiles) frames of one
+        geometry -> DecodedFrames; raises InvalidData when the ok flag is
+        clear."""
         buf = packed.numpy()
         if buf.dtype == np.int16:
             buf = buf.view(np.uint16)
         if buf[-1] == 0:
             raise InvalidData("invalid HT codestream (U bound violated)")
-        frames = []
+        out = []
         off = 0
-        for hdr in hdrs:
+        for hdr, tiles in frames:
             outs = []
             for (_o, ph, pw) in geom.planes:
                 outs.append(buf[off:off + ph * pw].reshape(ph, pw))
                 off += ph * pw
-            frames.append(self._assemble_frame(hdr, tiles, outs))
-        return frames
+            out.append(self._assemble_frame(hdr, tiles, outs))
+        return out
 
     def _assemble_frame(self, hdr, tiles, outs) -> DecodedFrame:
         """write_frame semantics on device output (host side)."""

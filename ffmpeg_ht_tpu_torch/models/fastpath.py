@@ -1,15 +1,16 @@
-"""The flat fast lane's host half and the v3 lane arguments as tensors.
+"""The flat fast lane's host half, and its lane arguments as tensors.
 
-Counterpart of ``ffmpeg_ht_tpu.models.fastpath`` for the v3 path. The
-host half is copied verbatim from it (numpy and C, no framework):
-``fast_profile``, ``FlatGeometry`` (with the ``_Geometry`` plan of the
-reference decoder), ``geometry_fingerprint``, ``parse_frame_flat``,
-``lane_raster_dims`` and ``build_v3_frame``. ``finish_v3_numpy`` and
-``to_torch`` replace the reference ``finish_v3``, which ends in
-``jnp.asarray``: the names and layouts of the returned arguments are
-those of the JAX function, so both packages can be handed identical
-arrays; uint32 word streams travel as int32 tensors holding the same
-bits.
+Counterpart of ``ffmpeg_ht_tpu.models.fastpath``. The host half is
+copied verbatim from it (numpy and C, no framework): ``fast_profile``,
+``FlatGeometry`` (with the ``_Geometry`` plan of the reference decoder),
+``geometry_fingerprint``, ``parse_frame_flat``, ``lane_raster_dims`` and
+``build_v3_frame`` for the v3 program; ``build_bucket_args`` for the v2
+bucketed path. ``finish_v3_numpy`` / ``to_torch`` replace the reference
+``finish_v3``, and ``finish_buckets`` the reference function of that
+name, which end in ``jnp.asarray``: the names and layouts of the returned
+arguments are those of the JAX functions, so both packages can be handed
+identical arrays; uint32 word streams travel as int32 tensors holding the
+same bits.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ from ffmpeg_ht_tpu_torch.ops.ht_batch import prepare_streams_with_limits
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
 _HOST_AREA = 256           # as the reference's models.decoder
+# the refinement bytes a lane's densified streams hold: SigProp's prefix
+# and MagRef's suffix of its Dref segment (decoder._bucket_arrays says why
+# these cover every reachable bit)
+SP_CAP, MR_CAP = 1200, 650
 
 
 def fast_profile(hdr) -> bool:
@@ -379,6 +384,222 @@ def _finish_cols(cols: dict) -> dict:
         raise InvalidData("cleanup pass length < 2")
     cols["active"] = inc
     return cols
+
+
+def build_bucket_args(fg: FlatGeometry, cols: dict, dest_shift=0,
+                      prev=None):
+    """Array-level replacement of _build_batch + _bucket_arrays.
+
+    Returns (accum) where accum collects per-bucket lane columns across
+    frames (decode_batch merges by calling repeatedly with dest_shift);
+    finish_buckets() turns it into the (shapes, bucket_args, pf) triple
+    _dispatch_args consumes.
+    """
+    body = np.frombuffer(cols["body"], np.uint8)
+    act = cols["active"]
+    idx = np.nonzero(act)[0]
+    if len(idx) == 0 and prev is None:
+        prev = {"buckets": {}, "pf_idx": [], "pf_val": [], "fg": fg}
+        return prev
+
+    zbp = cols["zbp"][idx]
+    npasses = cols["npasses"][idx]
+    lcup = cols["lcup"][idx]
+    lref = cols["lref"][idx]
+    off = cols["off"][idx]
+    w = fg.w[idx]
+    h = fg.h[idx]
+
+    # z_blk from npasses (ht_dec.py:609-612); placeholder passes shift
+    # the bitplane: S_blk = p0 + zbp (ht_dec.py:611,627). zbp_eff is the
+    # device-lane view (pLSB/maxbp math); the host oracle takes the RAW
+    # zbp because decode_htj2k re-derives p0 from npasses itself.
+    rem = npasses % 3
+    plhd = np.where(rem, npasses - rem, npasses - 3)
+    zblk = npasses - plhd
+    zbp_eff = zbp + plhd // 3
+
+    # host-oracle lanes: edge slivers and extreme bitplanes
+    host = fg.area_small[idx] | (zbp_eff + 1 > 25)
+    accum = prev if prev is not None else {
+        "buckets": {}, "pf_idx": [], "pf_val": [], "fg": fg}
+
+    if np.any(host):
+        from ffmpeg_ht_tpu_torch.ops import dequant as dq
+        from ffmpeg_ht_tpu_torch.ops import ht_dec
+        tf = fg.geom.transform
+        for k in np.nonzero(host)[0]:
+            gi = idx[k]
+            data = cols["body"][off[k]:off[k] + cols["len"][gi]]
+            t1 = ht_dec.decode_htj2k(
+                bytes(data), int(npasses[k]), int(cols["zbp"][gi]),
+                [int(lcup[k]), int(lref[k])], int(w[k]), int(h[k]),
+                int(fg.magb[gi]), 0, 0)
+            if tf == mk.DWT97:
+                blk = dq.dequant_float(
+                    t1, float(fg.fstep[gi]), int(fg.magb[gi]))
+            elif tf == mk.DWT97_INT:
+                blk = dq.dequant_int_97(
+                    t1, float(fg.fstep[gi]), int(fg.magb[gi]))
+            else:
+                blk = dq.dequant_int(t1, int(fg.istep[gi]),
+                                     int(fg.magb[gi]))
+            base = int(fg.dest[gi]) + dest_shift
+            stride = int(fg.stride[gi])
+            rows = base + np.arange(int(h[k]))[:, None] * stride \
+                + np.arange(int(w[k]))[None, :]
+            accum["pf_idx"].append(rows.ravel())
+            accum["pf_val"].append(np.asarray(blk).ravel())
+
+    dev = ~host
+    di = idx[dev]
+    if len(di) == 0:
+        return accum
+    w, h = fg.w[di], fg.h[di]
+    lcup, lref = cols["lcup"][di], cols["lref"][di]
+    off = cols["off"][di]
+    zbp = zbp_eff[dev]
+    zblk = zblk[dev]
+
+    # Scup from the last two cleanup bytes (vectorized; error parity with
+    # _build_batch / jpeg2000htdec.c:1265-1273)
+    b_last = body[off + lcup - 1].astype(np.int64)
+    b_prev = body[off + lcup - 2].astype(np.int64)
+    scup = (b_last << 4) + (b_prev & 0x0F)
+    if np.any((scup < 2) | (scup > lcup) | (scup > 4079)):
+        raise InvalidData("invalid Scup")
+
+    # length class (same pow2 rule as _build_batch)
+    need = (8 * lcup + 96) // 32
+    wc = np.maximum(16, 1 << np.ceil(np.log2(np.maximum(need, 1))
+                                     ).astype(np.int64))
+    keycode = (w.astype(np.int64) << 40) | (h.astype(np.int64) << 24) | wc
+    uniq, inv = np.unique(keycode, return_inverse=True)
+    for u_i, u in enumerate(uniq):
+        lane_sel = inv == u_i
+        li = di[lane_sel]
+        b = accum["buckets"].setdefault(
+            (int(u >> 40), int((u >> 24) & 0xFFFF), int(u & 0xFFFFFF)),
+            {"rows": [], "gi": [], "zbp": [], "dest": []})
+        b["rows"].append((cols["body"], off[lane_sel], lcup[lane_sel],
+                          lref[lane_sel], zblk[lane_sel]))
+        b["gi"].append(li)
+        b["zbp"].append(zbp[lane_sel])
+        b["dest"].append(fg.dest[li] + dest_shift)
+    return accum
+
+
+def finish_buckets(accum, total):
+    """(shapes, bucket_args, pf_idx, pf_val) for decoder._dispatch_args,
+    as numpy arrays (``to_torch`` uploads them): the reference
+    ``finish_buckets`` without its ``jnp.asarray``."""
+    from ffmpeg_ht_tpu_torch.models import decoder as D
+
+    fg = accum["fg"]
+    shapes, bucket_args = [], []
+    for key in sorted(accum["buckets"].keys()):
+        b = accum["buckets"][key]
+        w, h, wc = key
+        gi = np.concatenate(b["gi"])
+        zbp = np.concatenate(b["zbp"])
+        dest = np.concatenate(b["dest"])
+        n = len(gi)
+        npad = D._pow2(n, D._LANE_PAD)
+        lmax = 4
+        for (_, _, lc, _, _) in b["rows"]:
+            if len(lc):
+                lmax = max(lmax, int(lc.max()))
+        data = np.zeros((npad, lmax), np.uint8)
+        lcups = np.full(npad, 2, np.int64)
+        pcups = np.zeros(npad, np.int64)
+        zblk_all = np.zeros(npad, np.int64)
+        lref_all = np.zeros(npad, np.int64)
+        drefs = []
+        r0 = 0
+        for (bodyb, off, lc, lr, zb) in b["rows"]:
+            for i in range(len(off)):
+                row = np.frombuffer(bodyb, np.uint8,
+                                    int(lc[i]), int(off[i]))
+                data[r0, :len(row)] = row
+                if zb[i] > 1 and lr[i] > 0:
+                    drefs.append((r0, bodyb, int(off[i] + lc[i]),
+                                  int(lr[i])))
+                r0 += 1
+            lcups[r0 - len(off):r0] = lc
+            zblk_all[r0 - len(off):r0] = zb
+            lref_all[r0 - len(off):r0] = lr
+        # modDcup + Scup (vectorized)
+        scup = ((data[np.arange(npad), lcups - 1].astype(np.int64) << 4)
+                + (data[np.arange(npad), lcups - 2] & 0x0F))
+        data[np.arange(npad), lcups - 1] = 0xFF
+        data[np.arange(npad), lcups - 2] |= 0x0F
+        pcups[:n] = lcups[:n] - scup[:n]
+        pcups[n:] = 0
+
+        (msw, melw, vlcw, ms_lim,
+         mel_lim) = prepare_streams_with_limits(data, lcups, pcups)
+
+        refined = bool((zblk_all > 1).any())
+        args = dict(
+            msw=msw, melw=melw, vlcw=vlcw, ms_lim=ms_lim, mel_lim=mel_lim,
+            pLSB=np.where(np.arange(npad) < n, 30 - _pad(zbp, npad, 0),
+                          2).astype(np.int32),
+            maxbp=np.where(np.arange(npad) < n, _pad(zbp, npad, 31) + 1,
+                           32).astype(np.int32),
+            magb=_pad(fg.magb[gi], npad, 8).astype(np.int32),
+            istep=_pad(fg.istep[gi], npad, 32768).astype(np.int32),
+            scale97=_pad(fg.scale97[gi], npad, 0).astype(np.int32),
+            fscale=_pad(fg.fscale[gi], npad, 0.0).astype(np.float32),
+            dest=_pad(dest, npad, -1).astype(np.int32),
+            stride=_pad(fg.stride[gi], npad, 0).astype(np.int32),
+            nreal=n,
+        )
+        if refined:
+            from ffmpeg_ht_tpu_torch.ops.ht_batch import (
+                prepare_magref_stream, prepare_sigprop_stream)
+            spmax = max((min(lr, SP_CAP) for (_, _, _, lr) in drefs),
+                        default=4)
+            mrmax = max((min(lr, MR_CAP) for (_, _, _, lr) in drefs),
+                        default=4)
+            dsp = np.zeros((npad, max(spmax, 4)), np.uint8)
+            dmr = np.zeros((npad, max(mrmax, 4)), np.uint8)
+            lsp = np.zeros(npad, np.int64)
+            lmr = np.zeros(npad, np.int64)
+            for (r, bodyb, o, lr) in drefs:
+                ls = min(lr, SP_CAP)
+                row = np.frombuffer(bodyb, np.uint8,
+                                    min(ls, len(bodyb) - o), o)
+                dsp[r, :len(row)] = row
+                lsp[r] = ls
+                lm = min(lr, MR_CAP)
+                start = o + max(lr - MR_CAP, 0)
+                avail = max(min(lr - max(lr - MR_CAP, 0),
+                                len(bodyb) - start), 0)
+                # left-align: missing tail bytes (truncated stream) read
+                # as zeros, matching the oracle's end-of-stream extension
+                trow = np.frombuffer(bodyb, np.uint8, avail, start)
+                dmr[r, :len(trow)] = trow
+                lmr[r] = lm
+            args.update(
+                spw=prepare_sigprop_stream(dsp, lsp),
+                mrw=prepare_magref_stream(dmr, lmr),
+                has_sp=(zblk_all >= 2)[:npad].astype(bool),
+                has_mr=(zblk_all >= 3)[:npad].astype(bool),
+                # fast_profile admits CTSY_HTJ2K_F only, never VSC
+                causal=np.zeros(npad, bool))
+        mb = int(zbp.max()) + 1 if n else 8
+        ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
+        shapes.append((-(-w // 2), -(-h // 2), w, h, ms_class, refined))
+        bucket_args.append(args)
+
+    if accum["pf_idx"]:
+        pf_idx = np.concatenate(accum["pf_idx"]).astype(np.int32)
+        pf_val = np.concatenate(accum["pf_val"])
+    else:
+        pf_idx = np.array([total], np.int32)
+        dt = np.float32 if fg.geom.transform == mk.DWT97 else np.int32
+        pf_val = np.zeros(1, dt)
+    return shapes, bucket_args, pf_idx, pf_val
 
 
 def _pad(a, npad, fill):

@@ -439,3 +439,23 @@ def decode_cleanup_scan_dims(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
     rec = ht_vlc_pass(melw, vlcw, mel_lim, qws, qhs, qw, qh)
     return ht_magsgn_pass(rec, msw, pLSB, maxbp, ms_lim, qws, qhs, qw, qh,
                           ms_class)
+
+
+def _bucket_dims(msw, qw: int, qh: int, nreal: int):
+    """(qws, qhs) of a v2 bucket: its first `nreal` lanes decode the whole
+    (qw, qh) quad grid, the pad lanes after them are inert."""
+    real = torch.arange(msw.shape[0], device=msw.device) < nreal
+    return ((real * qw).to(torch.int32), (real * qh).to(torch.int32))
+
+
+def decode_cleanup_scan_sig(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
+                            qw: int, qh: int, ms_class: int, nreal: int):
+    """(mu, sig, ok) of a v2 bucket, every real lane a (2qh, 2qw) codeblock
+    (counterpart of ``ffmpeg_ht_tpu.ops.ht_scan.decode_cleanup_scan_sig``).
+    The JAX function decodes its pad lanes (pLSB 2, maxbp 32) and masks
+    their ok flag afterwards; here they are inert (qws = qhs = 0: nothing
+    read, zeros out, ok true), so `ms_class` need bound the real lanes
+    only."""
+    qws, qhs = _bucket_dims(msw, qw, qh, nreal)
+    return decode_cleanup_scan_dims(msw, melw, vlcw, pLSB, maxbp, ms_lim,
+                                    mel_lim, qws, qhs, qw, qh, ms_class)

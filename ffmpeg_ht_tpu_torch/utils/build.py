@@ -48,6 +48,10 @@ _SIGNATURES = {
     "ict_writeframe_launch": [_P, _P, _P, _I,            # y0s..y2s, frames
                               _I64, _I, _P, _I64,        # n, cbps, out, stride
                               _I, _I, _P],               # kind, mode, stream
+    "ht_refine_launch": [_P, _P, _P, _I, _P, _I,         # mu, sig, spw, mrw
+                         _P, _P, _P, _P,                 # per-lane vectors
+                         _I, _I, _I, _I, _I,             # N, qw, qh, w, h
+                         _P, _P],                        # out, stream
 }
 
 

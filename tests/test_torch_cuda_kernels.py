@@ -14,17 +14,24 @@ up to the raster), with inert lanes and lanes whose U bound fails. The
 ICT kernel matches its plain version exactly in both modes: the integer
 mode on inputs whose Q16 products wrap, the float mode (no FMA
 contraction, rint half to even) on random planes and on exact .5 ties.
+The refinement kernel (SigProp + MagRef) matches ``refine_ref`` bit for
+bit on random lanes (any sample words, quad patterns, refinement words,
+pLSB, flags) and on encoded codeblocks, where both also equal the scalar
+oracle.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
-from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_streams_batch,
+from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_magref_stream,
+                                              prepare_sigprop_stream,
+                                              prepare_streams_batch,
                                               stream_limits)
-from ffmpeg_ht_tpu_torch.ops.ht_enc import encode_cleanup
+from ffmpeg_ht_tpu_torch.ops.ht_dec import decode_htj2k
+from ffmpeg_ht_tpu_torch.ops.ht_enc import encode_block_3pass, encode_cleanup
 
 pytestmark = pytest.mark.cuda
 
@@ -271,3 +278,120 @@ def test_ict_kernel_rejects_bad_args(cuda):
         mct_cuda.ict_writeframe([y], 8, DWT97, out=out[1:])
     with pytest.raises(ValueError):              # planes on two shapes
         mct_cuda.ict_writeframe([y, [t[:4] for t in y]], 8, DWT97)
+
+
+_REFINE_KEYS = ("mu", "sig", "spw", "mrw", "pLSB", "has_sp", "has_mr",
+                "causal")
+
+
+def _refine_both(lanes, qw, qh, w, h, cuda):
+    """(kernel output, refine_ref output) as uint32 numpy arrays."""
+    t = [torch.from_numpy(np.ascontiguousarray(lanes[k]).view(np.int32)
+                          if lanes[k].dtype == np.uint32 else lanes[k])
+         for k in _REFINE_KEYS]
+    before = ht_refine.decode_refinement_scan.launches
+    got = ht_refine.decode_refinement_scan(*[x.to(cuda) for x in t], qw, qh,
+                                           w, h)
+    torch.cuda.synchronize()
+    assert ht_refine.decode_refinement_scan.launches == before + 1
+    want = ht_refine.refine_ref(*t, qw, qh, w, h)
+    return got.cpu().numpy().view(np.uint32), want.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("qw,qh,n,seed", [(32, 32, 67, 31), (16, 16, 130, 32),
+                                          (9, 15, 41, 33), (10, 10, 9, 34),
+                                          (1, 32, 5, 35), (32, 3, 7, 36)])
+def test_refine_kernel_matches_ref_random(cuda, qw, qh, n, seed):
+    """Random lanes: any words, patterns, pLSB and has_sp / has_mr / causal
+    mix; codeblock one sample narrower and shorter than the raster."""
+    rng = np.random.default_rng(seed)
+    u32 = lambda *shape: rng.integers(0, 2 ** 32, shape, dtype=np.uint64) \
+        .astype(np.uint32)
+    lanes = dict(
+        mu=u32(n, 2 * qh, 2 * qw),
+        sig=(rng.integers(0, 16, (n, qh, qw))
+             * (rng.random((n, qh, qw)) < rng.random())).astype(np.int32),
+        spw=u32(n, 40), mrw=u32(n, 24),
+        pLSB=rng.integers(2, 31, n).astype(np.int32),
+        has_sp=rng.random(n) < 0.8, has_mr=rng.random(n) < 0.6,
+        causal=rng.random(n) < 0.5)
+    w, h = max(2 * qw - 1, 1), max(2 * qh - 1, 1)
+    got, want = _refine_both(lanes, qw, qh, w, h, cuda)
+    assert np.array_equal(got, want)
+
+
+def _encoded_refine_lanes(rng, w, h, n, causal):
+    """n codeblocks from encode_block_3pass (z_blk 3, 2, 1 in turn; all 3
+    when causal), cleanup by cleanup_ref: (lanes, oracle samples)."""
+    zbp, magb = 6, 8
+    blocks = []
+    while len(blocks) < n:
+        mag = rng.integers(0, 128, (h, w)).astype(np.int64)
+        mag = np.where(rng.random((h, w)) < rng.random(), 0, mag)
+        sign = np.where(mag > 0, rng.integers(0, 2, (h, w)), 0)
+        enc = encode_block_3pass(mag, sign.astype(np.int64), zbp,
+                                 is_causal=int(causal))
+        if enc is not None:
+            blocks.append((*enc, 3 if causal else (3, 2, 1)[len(blocks) % 3]))
+    qw, qh = -(-w // 2), -(-h // 2)
+    cdat = np.zeros((n, max(len(b[0]) for b in blocks)), np.uint8)
+    dref = np.zeros((n, max(max(b[2] for b in blocks), 4)), np.uint8)
+    lcups, pcups, lrefs = (np.zeros(n, np.int64) for _ in range(3))
+    for i, (data, lcup, lref, npass) in enumerate(blocks):
+        buf = bytearray(data[:lcup])
+        scup = (buf[lcup - 1] << 4) + (buf[lcup - 2] & 0x0F)
+        buf[lcup - 1] = 0xFF
+        buf[lcup - 2] |= 0x0F
+        cdat[i, :lcup] = np.frombuffer(bytes(buf), np.uint8)
+        lcups[i], pcups[i] = lcup, lcup - scup
+        if npass > 1:
+            dref[i, :lref] = np.frombuffer(data[lcup:lcup + lref], np.uint8)
+            lrefs[i] = lref
+    msw, melw, vlcw = prepare_streams_batch(cdat, lcups, pcups)
+    ms_lim, mel_lim = stream_limits(cdat, lcups, pcups)
+    t = lambda a: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                   else a.astype(np.int32))
+    full = torch.ones(n, dtype=torch.int32)
+    mu, sig, ok = ht_scan.cleanup_ref(
+        t(msw), t(melw), t(vlcw), full * (30 - zbp), full * (zbp + 1),
+        t(ms_lim), t(mel_lim), full * qw, full * qh, qw, qh, zbp + 1)
+    assert bool(ok.all())
+    npasses = np.array([b[3] for b in blocks])
+    lanes = dict(mu=mu.numpy().view(np.uint32), sig=sig.numpy(),
+                 spw=prepare_sigprop_stream(dref, lrefs),
+                 mrw=prepare_magref_stream(dref, lrefs),
+                 pLSB=np.full(n, 30 - zbp, np.int32), has_sp=npasses >= 2,
+                 has_mr=npasses >= 3, causal=np.full(n, causal))
+    want = [decode_htj2k(d, npass, zbp, [lcup, lref], w, h, magb, 0,
+                         int(causal)).view(np.uint32)
+            for d, lcup, lref, npass in blocks]
+    return lanes, want
+
+
+@pytest.mark.parametrize("w,h,causal", [(32, 32, False), (17, 29, False),
+                                        (64, 64, False), (32, 32, True),
+                                        (20, 19, True), (64, 64, True)])
+def test_refine_kernel_matches_ref_encoded(cuda, w, h, causal):
+    lanes, oracle = _encoded_refine_lanes(np.random.default_rng(w + h),
+                                          w, h, 9, causal)
+    got, want = _refine_both(lanes, -(-w // 2), -(-h // 2), w, h, cuda)
+    assert np.array_equal(got, want)
+    for i, o in enumerate(oracle):
+        assert np.array_equal(got[i, :h, :w], o), f"lane {i}"
+
+
+def test_refine_kernel_rejects_bad_args(cuda):
+    n, qw, qh = 4, 8, 8
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda)
+    b = torch.zeros(n, dtype=torch.bool, device=cuda)
+    args = [z(n, 16, 16), z(n, 8, 8), z(n, 4), z(n, 4), z(n) + 10, b, b, b]
+    with pytest.raises(ValueError):                  # w beyond the raster
+        ht_refine.decode_refinement_scan(*args, qw, qh, 17, 16)
+    with pytest.raises(ValueError):                  # 66-sample raster
+        ht_refine.decode_refinement_scan(*args, 33, qh, 16, 16)
+    with pytest.raises(TypeError):
+        ht_refine.decode_refinement_scan(*args[:5], b.to(torch.int32),
+                                         *args[6:], qw, qh, 16, 16)
+    with pytest.raises(ValueError):                  # sig of another shape
+        ht_refine.decode_refinement_scan(args[0], z(n, 8, 7), *args[2:],
+                                         qw, qh, 16, 16)

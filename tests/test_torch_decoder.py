@@ -184,15 +184,17 @@ def test_u_bound_violation_raises_invalid_data(dec):
         dec._finish(hdr, fg.tiles, fg.geom, packed)
 
 
-def test_outside_slice_raises_not_host(dec):
-    """A stream with refinement passes needs the v2 bucketed path: it
-    raises naming its ROADMAP item and never goes to the host oracle."""
+def test_outside_slice_raises_not_host(dec, jax_dec):
+    """A stream with refinement passes leaves the v3 lane: it decodes on
+    the device through the v2 bucketed path (never on the host oracle),
+    equal to the JAX Decoder and to the source."""
     img = IMAGES["gray8"][0]
-    host_before = dec.host_frames
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.decode(encode_frame_htj2k(img, refinement=True, ht_layers=2,
-                                      **ENC))
-    assert dec.host_frames == host_before
+    data = encode_frame_htj2k(img, refinement=True, ht_layers=2, **ENC)
+    counts = (dec.v2_frames, dec.v3_frames, dec.host_frames)
+    got = dec.decode(data)
+    assert (dec.v2_frames, dec.v3_frames, dec.host_frames) == (
+        counts[0] + 1, counts[1], counts[2])
+    assert got.tobytes() == jax_dec.decode(data).tobytes() == img.tobytes()
 
 
 def test_legacy_stream_takes_host_oracle(dec, jax_dec):
