@@ -51,7 +51,10 @@ line or more each; any failure raises and the script exits non-zero:
      lanes must be refined); on every bucket of the v2 program that
      ``decode_batch`` [A, B, A, B] dispatches (``Decoder._v2_args``) the
      cleanup kernels against their plain versions and, on the refined
-     buckets, ``ht_refine`` against ``refine_ref`` (time, bound, share);
+     buckets, the refinement kernels (``ht_sigprop_pass``, then
+     ``ht_magref_pass``) each against its plain half and the pair
+     against ``refine_ref`` (time, bound and share, summed and by
+     bucket, beside the earlier kernel's time; their ptxas registers);
      the main paths ``decode_stream`` [A, B] and ``decode_batch`` [A, B,
      A, B] (counts reset before and read after each, every frame equal
      to its source, all on the v2 path); their ms per frame and one
@@ -70,6 +73,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -117,6 +121,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published, at the 700 W limit
 # the earlier cleanup kernel, one thread per codeblock, on an H100 80GB
 # HBM3 at 700 W (PERF.md, section 6): printed beside the split design
 ONE_THREAD_CLEANUP_MS = 2.46
+# the earlier refinement kernel, one warp per codeblock with SigProp on
+# lane 0, on the six refined buckets of the c4 decode_batch [A, B, A, B]
+# program, summed; H100 80GB HBM3 at 700 W (PERF.md, section 6)
+ONE_WARP_REFINE_MS = 1.0664
 
 
 def _natural(rng, h, w, maxval=1023, dtype=np.uint16):
@@ -232,6 +240,33 @@ def _v3_segments(fcs):
             np.concatenate([fc["pcups"][fc["qws"] > 0] for fc in fcs]))
 
 
+def _plain(fn, *a):
+    """(fn(*a), its ms on the host clock, synchronised before and after)."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = fn(*a)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t1) * 1e3
+
+
+def _ptxas(log, names):
+    """{kernel: what ptxas -v says it uses (registers, shared memory)} for
+    the entry functions whose mangled name holds one of `names`; a template
+    instance keeps its argument (``ht_magref_kernel<2>``)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            cur = next((n for n in names if n in m.group(1)), None)
+            t = re.search(r"ILi(\d+)E", m.group(1))
+            if cur and t:
+                cur += f"<{t.group(1)}>"
+        elif cur and "Used" in ln:
+            out[cur] = ln.split("Used", 1)[1].strip()
+            cur = None
+    return out
+
+
 def _cleanup_check(args, segments, qw, qh, msc):
     """The HT cleanup kernels against their plain versions on the lanes of
     `args` (a device program's lane arguments, on the card; `segments` the
@@ -247,13 +282,7 @@ def _cleanup_check(args, segments, qw, qh, msc):
     N = msw.shape[0]
     vlc_in = (melw, vlcw, mel_lim, qws, qhs, qw, qh)
     u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
-
-    def plain(fn, *a):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = fn(*a)
-        torch.cuda.synchronize()
-        return res, (time.perf_counter() - t1) * 1e3
+    plain = _plain
 
     rec_k = ht_scan.ht_vlc_pass(*vlc_in)
     rec_r, vlc_plain_ms = plain(ht_scan.vlc_pass_ref, *vlc_in)
@@ -343,7 +372,11 @@ _KERNELS = {"ht_vlc_pass": ht_scan.ht_vlc_pass,
             "ht_magsgn_pass": ht_scan.ht_magsgn_pass,
             "rct_writeframe": mct_cuda.rct_writeframe,
             "ict_writeframe": mct_cuda.ict_writeframe,
+            "ht_sigprop_pass": ht_refine.ht_sigprop_pass,
+            "ht_magref_pass": ht_refine.ht_magref_pass,
+            # the wrapper: one call launches the two refinement kernels
             "ht_refine": ht_refine.decode_refinement_scan}
+_REFINE = ("ht_sigprop_pass", "ht_magref_pass", "ht_refine")
 
 
 def _counts():
@@ -478,7 +511,7 @@ def _phase6(dev):
     frames = dec_f.decode_batch(streams)
     batch_counts = _counts()
     want = {"ht_vlc_pass": 1, "ht_magsgn_pass": 1, "rct_writeframe": 0,
-            "ict_writeframe": 1, "ht_refine": 0}
+            "ict_writeframe": 1, **dict.fromkeys(_REFINE, 0)}
     if batch_counts != want:
         raise RuntimeError(f"decode_batch launches {batch_counts}, "
                            f"expected {want}")
@@ -499,7 +532,7 @@ def _phase6(dev):
     int_counts = _counts()
     want = {"ht_vlc_pass": len(streams), "ht_magsgn_pass": len(streams),
             "rct_writeframe": 0, "ict_writeframe": len(streams),
-            "ht_refine": 0}
+            **dict.fromkeys(_REFINE, 0)}
     if dec_i.v3_frames != len(streams) or dec_i.host_frames \
             or int_counts != want:
         raise RuntimeError(f"decode_stream (bitexact): v3 frames "
@@ -578,14 +611,15 @@ def _v2_buckets(dec, streams):
     """The buckets of the v2 program Decoder.decode_batch dispatches for
     same-geometry `streams` (``Decoder._v2_args``, which _fast_batch and
     _fast_launch call): (shapes, numpy bucket arrays, per bucket its lanes'
-    cleanup (lcup, pcup) and the refinement bytes its lanes hold)."""
+    cleanup (lcup, pcup) and the refinement bytes its lanes hold: in all,
+    those SigProp reads, those MagRef reads)."""
     hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
     fg = dec._fast_geom(hdrs[0])
     _geom, (shapes, bargs, _pf_idx, _pf_val), accum = dec._v2_args(
         fg, [FP.parse_frame_flat(h, fg) for h in hdrs])
     segs = []
     for key in sorted(accum["buckets"]):
-        lc, pc, rb = [], [], []
+        lc, pc, rb, sp, mr = [], [], [], [], []
         for body, off, lcup, lref, zb in accum["buckets"][key]["rows"]:
             b = np.frombuffer(body, np.uint8)
             scup = (b[off + lcup - 1].astype(np.int64) << 4) \
@@ -596,24 +630,36 @@ def _v2_buckets(dec, streams):
             # (z_blk >= 2) and MagRef's suffix (z_blk 3) of one segment
             cap = np.where(zb >= 3, FP.SP_CAP + FP.MR_CAP, FP.SP_CAP)
             rb.append(np.where(zb >= 2, np.minimum(lref, cap), 0))
-        segs.append((np.concatenate(lc), np.concatenate(pc),
-                     int(np.concatenate(rb).astype(np.int64).sum())))
+            sp.append(np.where(zb >= 2, np.minimum(lref, FP.SP_CAP), 0))
+            mr.append(np.where(zb >= 3, np.minimum(lref, FP.MR_CAP), 0))
+        total = lambda parts: int(np.concatenate(parts).astype(np.int64)
+                                  .sum())
+        segs.append((np.concatenate(lc), np.concatenate(pc), total(rb),
+                     total(sp), total(mr)))
     return shapes, bargs, segs
 
 
 def _v2_kernel_checks(dev, shapes, bargs, segs):
-    """On every bucket of a v2 program: the cleanup kernels against their
-    plain versions (``_cleanup_check``), and on every refined bucket
-    ``ht_refine`` against ``refine_ref`` on the kernel cleanup's (mu, sig).
-    Raises on any difference; returns the numbers summed over the buckets
-    (ms by CUDA events with a head start, bounds from the bytes)."""
+    """On every bucket of a v2 program, the cleanup kernels against their
+    plain versions (``_cleanup_check``). On every refined bucket, from the
+    kernel cleanup's (mu, sig): ``ht_sigprop_pass`` against
+    ``sigprop_pass_ref`` (its words), ``ht_magref_pass`` against
+    ``magref_pass_ref`` given the plain words, and the pair
+    (``decode_refinement_scan``) against ``refine_ref``. Raises on any
+    difference. Returns the cleanup numbers summed over the buckets; the
+    refinement's under "magref", "sigprop" and "pair", summed and by
+    bucket (ms by CUDA events with a head start, bounds from the bytes);
+    and the refined buckets' count, lanes and shapes."""
     up = lambda v: to_torch(v, dev) if isinstance(v, np.ndarray) else v
     u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
+    diff = lambda a, b: int((u32(a) - u32(b)).abs().max())
     clean = {k: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
              for k in ("vlc", "magsgn", "pair")}
-    ref = dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               buckets=0, lanes=0, shapes=[])
-    for (qw, qh, w, h, msc, refined), a, (lc, pc, dref) in zip(
+    ref = {k: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   ms_by_bucket=[], bound_ms_by_bucket=[])
+           for k in ("sigprop", "magref", "pair")}
+    info = dict(buckets=0, lanes=0, shapes=[])
+    for (qw, qh, w, h, msc, refined), a, (lc, pc, dref, sp_b, mr_b) in zip(
             shapes, bargs, segs):
         t = {k: up(v) for k, v in a.items()}
         t["qws"], t["qhs"] = ht_scan._bucket_dims(t["msw"], qw, qh,
@@ -628,29 +674,55 @@ def _v2_kernel_checks(dev, shapes, bargs, segs):
         mu, sig, _ok = ht_scan.decode_cleanup_scan_sig(
             t["msw"], t["melw"], t["vlcw"], t["pLSB"], t["maxbp"],
             t["ms_lim"], t["mel_lim"], qw, qh, msc, a["nreal"])
+        s_in = (sig, t["spw"], t["has_sp"], t["causal"], qw, qh, w, h)
         rargs = (mu, sig, t["spw"], t["mrw"], t["pLSB"], t["has_sp"],
                  t["has_mr"], t["causal"], qw, qh, w, h)
+        words_k = ht_refine.ht_sigprop_pass(*s_in)
+        words_r, s_plain = _plain(ht_refine.sigprop_pass_ref, *s_in)
+        m_in = (mu, sig, t["mrw"], t["pLSB"], t["has_mr"], words_r, qw, qh,
+                w, h)
+        got_m = ht_refine.ht_magref_pass(*m_in)
+        want_m, m_plain = _plain(ht_refine.magref_pass_ref, *m_in)
         got = ht_refine.decode_refinement_scan(*rargs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = ht_refine.refine_ref(*rargs)
-        torch.cuda.synchronize()
-        ref["plain_ms"] += (time.perf_counter() - t0) * 1e3
-        err = int((u32(got) - u32(want)).abs().max())
-        if err:
-            raise RuntimeError(f"ht_refine differs from refine_ref on the "
-                               f"{w}x{h} bucket (max abs err {err})")
-        ref["ms"] += _cuda_ms(lambda: ht_refine.decode_refinement_scan(
-            *rargs), 10, True)
-        # the real lanes' mu read and written, quad patterns, pLSB and the
-        # three flags, and the Dref bytes these lanes hold
+        want, p_plain = _plain(ht_refine.refine_ref, *rargs)
+        errs = dict(sigprop=diff(words_k, words_r), magref=diff(got_m, want_m),
+                    pair=diff(got, want))
+        if any(errs.values()):
+            raise RuntimeError(f"refinement kernels differ from their plain "
+                               f"versions on the {w}x{h} bucket (max abs "
+                               f"err {errs})")
+        ms = dict(
+            sigprop=_cuda_ms(lambda: ht_refine.ht_sigprop_pass(*s_in), 10,
+                             True),
+            magref=_cuda_ms(lambda: ht_refine.ht_magref_pass(*m_in), 10,
+                            True),
+            pair=_cuda_ms(lambda: ht_refine.decode_refinement_scan(*rargs),
+                          10, True))
+        # bytes, the real lanes' only: the pair reads mu, the quad
+        # patterns, pLSB and the three flags and the Dref bytes these lanes
+        # hold, and writes mu; SigProp reads the quad patterns, two flags
+        # and its Dref bytes and writes its words; MagRef reads mu, the
+        # quad patterns, pLSB, a flag, its Dref bytes and the words, and
+        # writes mu
         n = a["nreal"]
-        ref["bound_ms"] += _bound(n * (2 * 4 * 4 * qh * qw + 4 * qh * qw + 7)
-                                  + dref)
-        ref["buckets"] += 1
-        ref["lanes"] += n
-        ref["shapes"].append(f"{w}x{h}:{n}")
-    return clean, ref
+        word_bytes = 4 * words_r[:n].numel()
+        nbytes = dict(
+            sigprop=n * (4 * qh * qw + 2) + sp_b + word_bytes,
+            magref=n * (2 * 4 * 4 * qh * qw + 4 * qh * qw + 5) + mr_b
+            + word_bytes,
+            pair=n * (2 * 4 * 4 * qh * qw + 4 * qh * qw + 7) + dref)
+        plain = dict(magref=m_plain, sigprop=s_plain, pair=p_plain)
+        for k, m in ref.items():
+            m["max_abs_err"] = max(m["max_abs_err"], errs[k])
+            m["ms"] += ms[k]
+            m["plain_ms"] += plain[k]
+            m["bound_ms"] += _bound(nbytes[k])
+            m["ms_by_bucket"].append(ms[k])
+            m["bound_ms_by_bucket"].append(_bound(nbytes[k]))
+        info["buckets"] += 1
+        info["lanes"] += n
+        info["shapes"].append(f"{w}x{h}:{n}")
+    return clean, ref, info
 
 
 def _laps_v2(dec, streams, dev):
@@ -708,9 +780,9 @@ def _need_launched(counts, names, what):
 
 def _phase7(dev):
     """BASELINE config 4 (a crop) and the v2 path's other routes; returns
-    (the ht_refine entry of the kernels line without its launches, the
-    cleanup kernels' numbers at the v2 buckets, {path: (launch counts,
-    frames)} of decode_stream and decode_batch)."""
+    (the refinement kernels' entries of the kernels line without their
+    launches, the cleanup kernels' numbers at the v2 buckets, {path:
+    (launch counts, frames)} of decode_stream and decode_batch)."""
     t0 = time.perf_counter()
     srcs, (A, B) = _c4_streams()
     print(f"phase 7 encode (port encoder): 2 grainy natural frames "
@@ -740,16 +812,29 @@ def _phase7(dev):
     # the kernels on the buckets of the main path's own program
     batch_in = [A, B, A, B]
     shapes, bargs, segs = _v2_buckets(dec, batch_in)
-    clean, ref = _v2_kernel_checks(dev, shapes, bargs, segs)
+    clean, ref, info = _v2_kernel_checks(dev, shapes, bargs, segs)
     print(f"phase 7 decode_batch [A, B, A, B]'s program: {len(shapes)} "
           f"buckets ({sum(a['nreal'] for a in bargs)} device lanes; "
-          f"{ref['buckets']} refined buckets, {ref['lanes']} lanes)")
+          f"{info['buckets']} refined buckets, {info['lanes']} lanes: "
+          f"{', '.join(info['shapes'])})")
     _print_cleanup("phase 7", clean)
-    print(f"phase 7   ht_refine == refine_ref on every refined bucket "
-          f"({', '.join(ref['shapes'])}): kernel {ref['ms']:.4f} ms "
-          f"({ref['ms'] / len(batch_in):.4f} ms/frame), plain "
-          f"{ref['plain_ms']:.1f} ms, bound {ref['bound_ms']:.4f} ms "
-          f"(bytes), {100 * ref['bound_ms'] / ref['ms']:.1f}% of bound")
+    for key, name in (("sigprop", "ht_sigprop_pass == sigprop_pass_ref "
+                                  "(words)"),
+                      ("magref", "ht_magref_pass == magref_pass_ref (same "
+                                 "words)"),
+                      ("pair", "refinement pair == refine_ref")):
+        m = ref[key]
+        print(f"phase 7   {name}: kernel {m['ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.1f} ms, bound {m['bound_ms']:.4f} ms "
+              f"(bytes), {100 * m['bound_ms'] / m['ms']:.1f}% of bound; by "
+              "bucket, ms (% of bound): " + ", ".join(
+                  f"{t:.4f} ({100 * b / t:.1f}%)" for t, b in zip(
+                      m["ms_by_bucket"], m["bound_ms_by_bucket"])))
+    regs = _ptxas(build.load().log, ("ht_sigprop_kernel", "ht_magref_kernel"))
+    print(f"phase 7   refinement pair {ref['pair']['ms']:.4f} ms "
+          f"({ref['pair']['ms'] / len(batch_in):.4f} ms/frame) vs "
+          f"{ONE_WARP_REFINE_MS} ms for the earlier one-warp-per-codeblock "
+          "kernel; ptxas: " + "; ".join(f"{k}: {v}" for k, v in regs.items()))
 
     # the main paths
     _reset_counts()
@@ -758,10 +843,10 @@ def _phase7(dev):
     _reset_counts()
     batch = dec.decode_batch(batch_in)
     batch_counts = _counts()
-    if batch_counts["ht_refine"] != ref["buckets"]:
-        raise RuntimeError(f"decode_batch launched ht_refine "
-                           f"{batch_counts['ht_refine']} times; its program "
-                           f"has {ref['buckets']} refined buckets")
+    if any(batch_counts[k] != info["buckets"] for k in _REFINE):
+        raise RuntimeError(f"decode_batch launched the refinement "
+                           f"{[batch_counts[k] for k in _REFINE]} times; its "
+                           f"program has {info['buckets']} refined buckets")
     for fr, src in zip(frames + batch, srcs + srcs + srcs):
         if not _same(fr, src, 10):
             raise RuntimeError(f"c4 frame ({fr.fmt.name}) differs from its "
@@ -769,7 +854,7 @@ def _phase7(dev):
     if dec.v2_frames != 6 or dec.v3_frames or dec.host_frames:
         raise RuntimeError(f"c4: v2 frames {dec.v2_frames}, v3 "
                            f"{dec.v3_frames}, host {dec.host_frames}")
-    on_path = ("ht_vlc_pass", "ht_magsgn_pass", "ht_refine")
+    on_path = ("ht_vlc_pass", "ht_magsgn_pass", *_REFINE)
     _need_launched(stream_counts, on_path, "c4 decode_stream")
     _need_launched(batch_counts, on_path, "c4 decode_batch")
     print(f"phase 7 decode_stream [A, B] and decode_batch [A, B, A, B]: "
@@ -831,17 +916,22 @@ def _phase7(dev):
           f"float oracle (max abs diff, samples off) {diffs[1]}; VSC (object "
           f"path) == source; {', '.join(opts)} == host oracle")
 
-    entry = dict(name="ht_refine", route="cuda",
-                 source="ffmpeg_ht_tpu_torch/csrc/ht_refine.cu",
-                 replaces="ffmpeg_ht_tpu/ops/ht_refine.py:58",
-                 max_abs_err=ref["max_abs_err"], ms=ref["ms"],
-                 plain_ms=ref["plain_ms"], bound_ms=ref["bound_ms"],
-                 shapes="decode_batch [A, B, A, B]'s refined buckets, summed",
-                 ms_per_frame=ref["ms"] / len(batch_in),
-                 buckets=ref["buckets"], lanes=ref["lanes"])
+    pair = dict(ref["pair"], earlier_ms=ONE_WARP_REFINE_MS,
+                ms_per_frame=ref["pair"]["ms"] / len(batch_in))
+    entries = [dict(name=name, route="cuda",
+                    source="ffmpeg_ht_tpu_torch/csrc/ht_refine.cu",
+                    replaces="ffmpeg_ht_tpu/ops/ht_refine.py:58",
+                    **ref[key], ptxas={k: v for k, v in regs.items()
+                                       if k.startswith(kernel)},
+                    shapes="decode_batch [A, B, A, B]'s refined buckets, "
+                           "summed", buckets=info["buckets"],
+                    lanes=info["lanes"], refine_pair=pair)
+               for name, key, kernel in (
+                   ("ht_sigprop_pass", "sigprop", "ht_sigprop_kernel"),
+                   ("ht_magref_pass", "magref", "ht_magref_kernel"))]
     paths = {"c4_decode_stream": (stream_counts, 2),
              "c4_decode_batch": (batch_counts, 4)}
-    return entry, clean, paths
+    return entries, clean, paths
 
 
 def main() -> int:
@@ -950,7 +1040,7 @@ def main() -> int:
     if dec.v3_frames != len(order) or dec.host_frames:
         raise RuntimeError(f"v3 frames {dec.v3_frames}, host frames "
                            f"{dec.host_frames}")
-    if any(n != (0 if k in ("ict_writeframe", "ht_refine") else len(order))
+    if any(n != (0 if k in ("ict_writeframe", *_REFINE) else len(order))
            for k, n in launches.items()):
         raise RuntimeError(f"launches {launches}, expected one per frame "
                            f"({len(order)}), no ICT and no refinement")
@@ -976,7 +1066,7 @@ def main() -> int:
     ict_entry, c2, c2_paths = _phase6(dev)
 
     # ---- phase 7: BASELINE config 4 (a crop), the v2 bucketed path
-    refine_entry, c4, c4_paths = _phase7(dev)
+    refine_entries, c4, c4_paths = _phase7(dev)
 
     cleanup_src = "ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192"
     kernels = [
@@ -996,17 +1086,18 @@ def main() -> int:
              max_abs_err=rct_err, ms=rct_ms, plain_ms=rct_plain_ms,
              bound_ms=rct_bound),
         ict_entry,
-        refine_entry,
+        *refine_entries,
     ]
     # every path's run is read between a reset and the next; `launches`
     # is the count on the kernel's main path, the path whose shapes its
     # ms and bound_ms were measured at: c3 decode_stream (phase 5) for the
     # kernels of the 5/3 slice, c2 decode_batch (phase 6) for ICT, c4
-    # decode_batch (phase 7) for ht_refine
+    # decode_batch (phase 7) for the two refinement kernels
     paths = {"c3_decode_stream": (launches, len(order)), **c2_paths,
              **c4_paths}
     main_paths = {"ict_writeframe": "c2_decode_batch",
-                  "ht_refine": "c4_decode_batch"}
+                  "ht_sigprop_pass": "c4_decode_batch",
+                  "ht_magref_pass": "c4_decode_batch"}
     for k in kernels:
         main_path = main_paths.get(k["name"], "c3_decode_stream")
         n = {p: c[k["name"]] for p, (c, _f) in paths.items()}

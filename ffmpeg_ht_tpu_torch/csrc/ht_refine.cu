@@ -1,63 +1,83 @@
-// HT refinement passes, SigProp + MagRef, over the cleanup output: one warp
-// per codeblock.
+// HT refinement passes over the cleanup output, as two launches per refined
+// bucket: ht_sigprop_pass (a thread per codeblock, 32 codeblocks a warp),
+// then ht_magref_pass (a warp per codeblock).
 //
 // Replaces ffmpeg_ht_tpu/ops/ht_refine.py:58 decode_refinement_scan (XLA
-// ops, not Pallas, in the JAX package). The plain PyTorch version is
-// ffmpeg_ht_tpu_torch/ops/ht_refine.py:refine_ref; the contract (inputs,
-// layouts, the one deliberate difference from the JAX function) is in that
-// module's docstring.
+// ops, not Pallas, in the JAX package). The plain PyTorch versions are
+// ffmpeg_ht_tpu_torch/ops/ht_refine.py: sigprop_pass_ref and
+// magref_pass_ref, whose composition is refine_ref; the contract (inputs,
+// layouts, the word format, the one deliberate difference from the JAX
+// function) is in that module's docstring.
 //
-// What bounds it on the H100: by bytes, the mu raster read and written
-// (4 bytes a sample) beside the quad patterns and the refinement words; but
-// SigProp is serial within a codeblock (a sample's magnitude bit depends on
-// the bits of the samples scanned before it), so the latency of one
-// thread's walk over its codeblock sets the time.
+// What bounds it on the H100. By bytes: the mu raster read and written (4
+// bytes a sample each way) beside the quad patterns and the refinement
+// words. But SigProp is serial within a codeblock (whether a sample reads a
+// bit depends on the bits read before it), so the latency of one
+// codeblock's walk sets a floor: a thread per codeblock, with fewer warps
+// than the card has schedulers, runs at the speed of its dependent chain.
+// The earlier one-warp-per-codeblock kernel walked on lane 0 alone and was
+// bound by issue slots (every SigProp instruction did one lane's work).
 //
-// What the design does about it:
-//  * the significance of a codeblock lives in 64-bit row masks in shared
-//    memory (built from the quad patterns with one warp ballot per corner
-//    and quad row), so a sample's 8-neighbourhood is a few shifts and ORs;
-//  * SigProp: lane 0 walks the stripes, 4x4 blocks along each, with the
-//    static neighbourhood sigma of the stripe's rows and the REF masks of
-//    the stripe and of the row above it in registers; one 32-bit peek of
-//    the (host-unstuffed) SigProp words per block serves its magnitude and
-//    sign bits; words past the end read as zeros. It leaves REF and sign
-//    row masks in shared memory;
-//  * MagRef and the write-back run on the whole warp, stripe by stripe:
-//    lane l owns raster columns 2l and 2l+1; a warp scan of its columns'
-//    significant-sample counts gives every sample its rank in MagRef's scan
-//    order, hence its bit in the MagRef words; each lane then writes its
-//    two samples of every row as one uint2 (zero outside the codeblock).
+// What the design does about it. SigProp touches only the samples that the
+// cleanup left insignificant, MagRef only the others, and SigProp reads
+// only the cleanup's sigma and its own REF bits, so the passes split:
+//  * ht_sigprop_pass, a thread per codeblock: walks the stripes and 4x4
+//    blocks with its state in registers: the sigma rows around the stripe
+//    as 64-bit masks (two new quad rows a stripe), the stripe's candidate
+//    and seed rows (the candidates are the insignificant samples inside the
+//    codeblock, the seeds those with a significant neighbour, causal
+//    codeblocks dropping the row below on a stripe's last row), turned
+//    into scan order (bit 4 * (x % 8) + y % 4 of a word a group of 8
+//    columns) off the dependent chain; the REF of the row above and of the
+//    previous block; the bit position and a two-word window of the SigProp
+//    words plus one fetched ahead. The sigma rows come 8 quads a word
+//    (their row-0 corners are the word's even bits). In scan order a REF
+//    bit can only make later samples members (the one below, and the next
+//    column's up-right, right and down-right), so a branch-free 16-step
+//    loop finds the members with a short chain per sample and every lane
+//    of the warp runs the same steps (a loop over pending members by __ffs
+//    ran dense 32x32 buckets 2x slower on an H100: a warp waits for its
+//    longest codeblock's loop). The block's signs are the next bits of the
+//    window, one a REF bit: they are kept in that order. It writes its
+//    REF bits and signs as two words a group (N x S x G x 2),
+//    not into the raster: 32 threads ORing single samples of 32
+//    codeblocks would cost a memory transaction a sample;
+//  * ht_magref_pass, a warp per codeblock, every lane busy (one raster
+//    column a lane up to 32 wide, two up to 64): sigma as column masks
+//    from the lane's quad column; the raster in chunks of 8 rows whose
+//    loads are issued before any is used; MagRef ranks from a warp scan of
+//    the columns' counts, two stripes a scan; SigProp's bits merged from
+//    its words; every row stored once, coalesced.
+// Two launches rather than one kernel with a shared-memory hand-off: a
+// block of 32 warps whose warp 0 walks SigProp for the block's codeblocks
+// holds all 32 warps while one walks, and ran 1.5x slower on an H100.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 4;                  // codeblocks per block
-constexpr int kRows = 64;                  // raster rows at most
+constexpr int kWarps = 4;                  // codeblocks per ht_magref block
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-struct WarpSmem {
-  uint64_t sig[kRows];                     // cleanup significance
-  uint64_t ref[kRows];                     // SigProp: became significant
-  uint64_t sgn[kRows];                     // SigProp: its sign bit
-};
-
-// bit q of m -> bit 2q
-__device__ __forceinline__ uint64_t spread(uint32_t m) {
-  uint64_t x = m;
-  x = (x | (x << 16)) & 0x0000FFFF0000FFFFull;
-  x = (x | (x << 8)) & 0x00FF00FF00FF00FFull;
-  x = (x | (x << 4)) & 0x0F0F0F0F0F0F0F0Full;
-  x = (x | (x << 2)) & 0x3333333333333333ull;
-  x = (x | (x << 1)) & 0x5555555555555555ull;
-  return x;
+// bit i of a byte -> bit 4i
+__device__ __forceinline__ uint32_t spread8(uint32_t b) {
+  b = (b | (b << 12)) & 0x000F000Fu;
+  b = (b | (b << 6)) & 0x03030303u;
+  return (b | (b << 3)) & 0x11111111u;
 }
 
-// bits x-1, x, x+1 of a row mask (nonzero when any is set)
-__device__ __forceinline__ uint64_t around(uint64_t r, int x) {
-  return x ? (r >> (x - 1)) & 7u : (r << 1) & 7u;
+// row r of a block's 16 scan-order bits (bits r, r + 4, r + 8, r + 12) as a
+// nibble: the product places them at bits 9..12 without carries
+__device__ __forceinline__ uint32_t block_row(uint32_t b, int r) {
+  return ((((b >> r) & 0x1111u) * 0x249u) >> 9) & 0xFu;
+}
+
+// the samples a member at scan-order bit b makes members when its bit is 1:
+// the one below (b + 1) and the next column's rows r - 1 .. r + 1
+// (b + 3 .. b + 5), as far as they lie in the block's rows
+__device__ __forceinline__ uint32_t after(int b) {
+  return ((0x183A3A32u >> (8 * (b & 3))) & 0xFFu) << b;
 }
 
 __device__ __forceinline__ uint32_t sp_word(const uint32_t* w, int W,
@@ -65,192 +85,319 @@ __device__ __forceinline__ uint32_t sp_word(const uint32_t* w, int W,
   return idx < W ? __ldg(w + idx) : 0u;
 }
 
-// SigProp over one codeblock (lane 0): REF and sign masks into smem.
-__device__ void sigprop(WarpSmem& s, const uint32_t* spw, int sp_W, int w,
-                        int h, bool causal) {
+__device__ __forceinline__ uint32_t nibble(uint64_t col, int s) {
+  return (uint32_t)(col >> (4 * s)) & 0xFu;
+}
+
+__device__ __forceinline__ uint64_t dilate(uint64_t m) {
+  return m | (m << 1) | (m >> 1);
+}
+
+// the even bits of x (0, 2, .., 30) -> bits 0..15
+__device__ __forceinline__ uint32_t compress2(uint32_t x) {
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
+  x = (x | (x >> 4)) & 0x00FF00FFu;
+  return (x | (x >> 8)) & 0x0000FFFFu;
+}
+
+// rows 2q and 2q + 1 of the codeblock's sigma as 64-bit masks (zero outside
+// the codeblock): corner i of a quad sits at (dy, dx) = (i & 1, i >> 1), so
+// with 8 quads' patterns side by side in a word, the row-0 corners are its
+// even bits and the row-1 corners its odd bits
+__device__ __forceinline__ void quad_row(const int32_t* __restrict__ sig,
+                                         int qw, int qh, int q, int h,
+                                         uint64_t wmask, uint64_t& even,
+                                         uint64_t& odd) {
+  even = odd = 0ull;
+  if (q >= qh) return;
+  const int32_t* p = sig + q * qw;
+  for (int qx0 = 0; qx0 < qw; qx0 += 8) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (qx0 + j < qw) v |= (uint32_t)__ldg(p + qx0 + j) << (4 * j);
+    even |= (uint64_t)compress2(v & 0x55555555u) << (2 * qx0);
+    odd |= (uint64_t)compress2((v >> 1) & 0x55555555u) << (2 * qx0);
+  }
+  even = 2 * q < h ? even & wmask : 0ull;
+  odd = 2 * q + 1 < h ? odd & wmask : 0ull;
+}
+
+// SigProp over one codeblock, run by one thread: its REF and sign bits into
+// `words` (S x G (REF, signs) pairs, zero where it sets nothing; the signs
+// of a group's REF samples in scan order, bit k for the k-th).
+__device__ void sigprop_codeblock(const int32_t* __restrict__ sig,
+                                  const uint32_t* __restrict__ spw, int sp_W,
+                                  bool has_sp, bool causal, int qw, int qh,
+                                  int w, int h, uint2* words) {
+  const int S = (qh + 1) >> 1, G = (qw + 3) >> 2;
+  const uint64_t wmask = w >= 64 ? ~0ull : (1ull << w) - 1ull;
   int pos = 0;                             // SigProp bit position
-  uint64_t ref_above = 0;                  // REF of the row above the stripe
-  for (int r0 = 0; r0 < h; r0 += 4) {
-    const int sh = min(4, h - r0);
-    uint64_t sg[6];                        // sigma, rows r0-1 .. r0+4
+  int wi = 0;                              // w0, w1: words wi, wi + 1;
+  uint32_t w0 = sp_word(spw, sp_W, 0);     // ahead: word wi + 2
+  uint32_t w1 = sp_word(spw, sp_W, 1);
+  uint32_t ahead = sp_word(spw, sp_W, 2);
+  uint64_t rm[8];                          // sigma rows r0 - 2 .. r0 + 5
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const int y = r0 - 1 + k;
-      sg[k] = (y >= 0 && y < h) ? s.sig[y] : 0ull;
-    }
-    uint64_t nb[4];                        // static neighbourhood sigma
+  for (int k = 0; k < 6; ++k) rm[k] = 0ull;
+  quad_row(sig, qw, qh, 0, h, wmask, rm[6], rm[7]);
+  uint64_t above = 0ull;                   // REF of the row above the stripe
+  int s = 0;
+  for (int r0 = 0; r0 < h; r0 += 4, ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) rm[k] = rm[k + 4];
+    quad_row(sig, qw, qh, (r0 >> 1) + 1, h, wmask, rm[4], rm[5]);
+    quad_row(sig, qw, qh, (r0 >> 1) + 2, h, wmask, rm[6], rm[7]);
+    // the stripe's candidate and seed rows
+    uint64_t crow[4], srow[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const uint64_t up = sg[r], mid = sg[r + 1], dn = sg[r + 2];
-      const uint64_t or5 = (up << 1) | up | (up >> 1) | (mid << 1) |
-                           (mid >> 1);
-      const bool last = r == sh - 1;       // the stripe's last row
-      nb[r] = or5 | ((causal && last) ? 0ull : ((dn << 1) | dn | (dn >> 1)));
+      const bool below = !(causal && (r == 3 || r0 + r == h - 1));
+      const uint64_t mid = rm[r + 2];
+      const uint64_t nb = dilate(rm[r + 1]) | (mid << 1) | (mid >> 1) |
+                          (below ? dilate(rm[r + 3]) : 0ull);
+      crow[r] = has_sp && r0 + r < h ? ~mid & wmask : 0ull;
+      srow[r] = crow[r] & nb;
     }
-    uint64_t R[4] = {0, 0, 0, 0}, S[4] = {0, 0, 0, 0};
+    const int last = min(4, h - r0) - 1;   // the stripe's last row
+    uint64_t row_last = 0ull;
+    uint32_t prev = 0u;                    // REF of the previous block
+    uint32_t cw = 0u, sw = 0u;             // the group's candidates, seeds
+    uint32_t gref = 0u, gsgn = 0u;         // the group's REF and signs
+    int gn = 0;                            // the group's REF count
     for (int x0 = 0; x0 < w; x0 += 4) {
-      const int wi = pos >> 5;
-      const uint32_t win = (uint32_t)(
-          ((uint64_t)sp_word(spw, sp_W, wi) |
-           ((uint64_t)sp_word(spw, sp_W, wi + 1) << 32)) >> (pos & 31));
-      int cnt = 0;
-      const int x1 = min(x0 + 4, w);
-      for (int x = x0; x < x1; ++x) {
+      if ((x0 & 7) == 0) {
+        cw = sw = 0u;
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          if (r >= sh || ((sg[r + 1] >> x) & 1u)) continue;
-          // REF of the neighbours scanned so far: the row above (the
-          // stripe above: all three; this stripe: up-left and up), the
-          // left, the down-left; the others are still zero in the masks
-          const uint64_t above = r == 0 ? ref_above : R[r > 0 ? r - 1 : 0];
-          const uint64_t below = r + 1 < sh ? R[r < 3 ? r + 1 : 3] : 0ull;
-          const uint64_t dyn = around(above, x) | around(R[r], x) |
-                               around(below, x);
-          if (((nb[r] >> x) & 1u) || dyn) {
-            R[r] |= (uint64_t)((win >> cnt) & 1u) << x;
-            ++cnt;
-          }
+          cw |= spread8((uint32_t)(crow[r] >> x0) & 0xFFu) << r;
+          sw |= spread8((uint32_t)(srow[r] >> x0) & 0xFFu) << r;
         }
       }
-      int off = cnt;                       // then the signs, same order
-      for (int x = x0; x < x1; ++x) {
+      const int s4 = 4 * (x0 & 7);
+      const uint32_t cand = (cw >> s4) & 0xFFFFu;
+      // REF outside the block: the row above (columns x0 - 1 .. x0 + 4) for
+      // row 0; the previous block's last column (left, up-left, down-left)
+      // for column 0
+      const uint32_t a =
+          (uint32_t)(x0 ? above >> (x0 - 1) : above << 1) & 0x3Fu;
+      const uint32_t ad = (a | (a >> 1) | (a >> 2)) & 0xFu;
+      const uint32_t p = prev >> 12;
+      uint32_t pend = ((sw >> s4) & 0xFFFFu) |
+                      (cand & (spread8(ad) | ((p | (p << 1) | (p >> 1)) &
+                                             0xFu)));
+      // the window: magnitude bits of the members in scan order, then the
+      // signs of those whose bit is 1; wv drops a bit per member
+      uint32_t wv = (uint32_t)((((uint64_t)w1 << 32) | w0) >> (pos & 31));
+      uint32_t ref = 0u;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if (r < sh && ((R[r] >> x) & 1u)) {
-            S[r] |= (uint64_t)((win >> off) & 1u) << x;
-            ++off;
-          }
+      for (int b = 0; b < 16; ++b) {
+        const uint32_t m = (pend >> b) & 1u;
+        const uint32_t bit = wv & m;
+        wv >>= m;
+        ref |= bit << b;
+        pend |= (cand & after(b)) & (0u - bit);
+      }
+      const int nref = __popc(ref);        // wv: its signs, in order
+      pos += __popc(pend) + nref;          // pend: the block's members
+      gref |= ref << s4;
+      gsgn |= (wv & ((1u << nref) - 1u)) << gn;
+      gn += nref;
+      if ((x0 & 7) == 4 || x0 + 4 >= w) {
+        words[s * G + (x0 >> 3)] = make_uint2(gref, gsgn);
+        gref = gsgn = 0u;
+        gn = 0;
+      }
+      if ((pos >> 5) != wi) {              // <= 32 bits a block: one word
+        ++wi;
+        w0 = w1;
+        w1 = ahead;
+        ahead = sp_word(spw, sp_W, wi + 2);
+      }
+      prev = ref;
+      row_last |= (uint64_t)block_row(ref, last) << x0;
+    }
+    for (int g = (w + 7) >> 3; g < G; ++g)
+      words[s * G + g] = make_uint2(0u, 0u);
+    above = row_last;
+  }
+  for (int i = s * G; i < S * G; ++i) words[i] = make_uint2(0u, 0u);
+}
+
+// MagRef over one codeblock, with SigProp's bits merged in, run by the whole
+// warp. CPL: raster columns per lane (1 up to 32 wide, 2 up to 64).
+template <int CPL>
+__device__ void magref_codeblock(
+    int lane, const uint32_t* __restrict__ mu,
+    const int32_t* __restrict__ sig, const uint32_t* __restrict__ mrw,
+    int mr_W, int pLSB, bool has_mr, int qw, int qh, int w, int h,
+    const uint2* words, uint32_t* __restrict__ out) {
+  const int H = 2 * qh, W = 2 * qw, S = (H + 3) >> 2, G = (W + 7) >> 3;
+  const int x = CPL * lane;                // this lane's first column
+  const uint64_t rows = h >= 64 ? ~0ull : (1ull << h) - 1ull;
+
+  // sigma of the lane's columns as column masks (bit y): corner i of a
+  // quad sits at (dy, dx) = (i & 1, i >> 1)
+  uint64_t c[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) c[k] = 0ull;
+  if ((x >> 1) < qw) {
+    const int32_t* q = sig + (x >> 1);
+#pragma unroll 8
+    for (int qr = 0; qr < qh; ++qr) {
+      const uint32_t p = (uint32_t)__ldg(q + qr * qw);
+#pragma unroll
+      for (int k = 0; k < CPL; ++k)
+        c[k] |= (uint64_t)((p >> (2 * ((x + k) & 1))) & 3u) << (2 * qr);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) c[k] = x + k < w ? c[k] & rows : 0ull;
+
+  const uint32_t pL = (uint32_t)(pLSB - 1);
+  const uint32_t half = 1u << (pL - 1);
+  const uint32_t sp_val = (1u << pL) | half;
+  int base = 0;                            // MagRef rank of the chunk
+  for (int s0 = 0; s0 < S; s0 += 2) {      // chunks of two stripes
+    const int y0 = 4 * s0;
+    uint32_t v[8][CPL];                    // the chunk's samples
+    uint2 sp[2];                           // SigProp's words, this group
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (y0 + i < H && x < W) {
+        if constexpr (CPL == 2) {
+          const uint2 in =
+              *reinterpret_cast<const uint2*>(mu + (y0 + i) * W + x);
+          v[i][0] = in.x;
+          v[i][CPL - 1] = in.y;
+        } else {
+          v[i][0] = mu[(y0 + i) * W + x];
         }
       }
-      pos += off;
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if (r < sh) {
-        s.ref[r0 + r] = R[r];
-        s.sgn[r0 + r] = S[r];
-      }
+    for (int j = 0; j < 2; ++j)
+      sp[j] = s0 + j < S && x < W ? words[(s0 + j) * G + (x >> 3)]
+                                  : make_uint2(0u, 0u);
+    // a warp scan of the columns' significant counts, both stripes at once
+    // (16-bit fields), gives every sample its rank in scan order, hence its
+    // bit in the MagRef words
+    uint32_t cnt = 0u;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      cnt += __popc(nibble(c[k], s0)) +
+             (s0 + 1 < S ? __popc(nibble(c[k], s0 + 1)) << 16 : 0u);
+    uint32_t incl = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
     }
-    ref_above = R[sh - 1];
+    const uint32_t tot = __shfl_sync(kFull, incl, 31);
+    const int excl = (int)(incl - cnt);
+    const int rank0[2] = {base + (excl & 0xFFFF),
+                          base + (int)(tot & 0xFFFF) + (excl >> 16)};
+    base += (int)(tot & 0xFFFF) + (int)(tot >> 16);
+    if (x >= W) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int y = y0 + i, r = i & 3;
+      if (y >= H) break;
+      int rk = rank0[i >> 2];
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const uint32_t col = nibble(c[k], y >> 2);
+        const int bit4 = 4 * ((x + k) & 7) + r;
+        if (y >= h || x + k >= w) {
+          v[i][k] = 0u;
+        } else if (has_mr && ((col >> r) & 1u)) {
+          const int rr = rk + __popc(col & ((1u << r) - 1u));
+          const int wi = min(rr >> 5, mr_W - 1);
+          const uint32_t bit = (__ldg(mrw + wi) >> (rr & 31)) & 1u;
+          v[i][k] = (v[i][k] & ((0xFFFFFFFEu | bit) << pL)) | half;
+        } else if ((sp[i >> 2].x >> bit4) & 1u) {
+          const int nth = __popc(sp[i >> 2].x & ((1u << bit4) - 1u));
+          v[i][k] |= sp_val | (((sp[i >> 2].y >> nth) & 1u) << 31);
+        }
+        rk += __popc(col);
+      }
+      if constexpr (CPL == 2)
+        *reinterpret_cast<uint2*>(out + y * W + x) =
+            make_uint2(v[i][0], v[i][CPL - 1]);
+      else
+        out[y * W + x] = v[i][0];
+    }
   }
 }
 
+__global__ void __launch_bounds__(32)
+ht_sigprop_kernel(const int32_t* __restrict__ sig_in,
+                  const uint32_t* __restrict__ spw_all, int sp_W,
+                  const uint8_t* __restrict__ has_sp_v,
+                  const uint8_t* __restrict__ causal_v, int N, int qw, int qh,
+                  int w, int h, uint2* __restrict__ words_all) {
+  const int n = blockIdx.x * 32 + threadIdx.x;
+  if (n >= N) return;
+  const int nw = ((qh + 1) >> 1) * ((qw + 3) >> 2);
+  sigprop_codeblock(sig_in + (size_t)n * qh * qw, spw_all + (size_t)n * sp_W,
+                    sp_W, has_sp_v[n] != 0, causal_v[n] != 0, qw, qh, w, h,
+                    words_all + (size_t)n * nw);
+}
+
+template <int CPL>
 __global__ void __launch_bounds__(32 * kWarps)
-ht_refine_kernel(const uint32_t* __restrict__ mu_in,
+ht_magref_kernel(const uint32_t* __restrict__ mu_in,
                  const int32_t* __restrict__ sig_in,
-                 const uint32_t* __restrict__ spw_all, int sp_W,
                  const uint32_t* __restrict__ mrw_all, int mr_W,
                  const int32_t* __restrict__ pLSB_v,
-                 const uint8_t* __restrict__ has_sp_v,
                  const uint8_t* __restrict__ has_mr_v,
-                 const uint8_t* __restrict__ causal_v, int N, int qw, int qh,
+                 const uint2* __restrict__ words_all, int N, int qw, int qh,
                  int w, int h, uint32_t* __restrict__ mu_out) {
-  __shared__ WarpSmem smem[kWarps];
-  const int wid = threadIdx.x >> 5;
-  const int n = blockIdx.x * kWarps + wid;
-  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (n >= N) return;                      // whole warps leave together
-  WarpSmem& s = smem[wid];
-  const int H = 2 * qh, W = 2 * qw;
-  const uint32_t* mu = mu_in + (size_t)n * H * W;
-  uint32_t* out = mu_out + (size_t)n * H * W;
-  const int32_t* sig = sig_in + (size_t)n * qh * qw;
-  const uint64_t wmask = w >= 64 ? ~0ull : (1ull << w) - 1ull;
-
-  // sigma row masks: corner i of a quad sits at (dy, dx) = (i & 1, i >> 1)
-  for (int qr = 0; qr < qh; ++qr) {
-    const int sp = lane < qw ? __ldg(sig + qr * qw + lane) : 0;
-    const uint32_t c0 = __ballot_sync(kFull, sp & 1);
-    const uint32_t c1 = __ballot_sync(kFull, sp & 2);
-    const uint32_t c2 = __ballot_sync(kFull, sp & 4);
-    const uint32_t c3 = __ballot_sync(kFull, sp & 8);
-    if (lane == 0) {
-      s.sig[2 * qr] = 2 * qr < h ? (spread(c0) | (spread(c2) << 1)) & wmask
-                                 : 0ull;
-      s.sig[2 * qr + 1] = 2 * qr + 1 < h
-                              ? (spread(c1) | (spread(c3) << 1)) & wmask
-                              : 0ull;
-    }
-  }
-  for (int y = lane; y < H; y += 32) s.ref[y] = s.sgn[y] = 0ull;
-  __syncwarp();
-  if (lane == 0 && has_sp_v[n])
-    sigprop(s, spw_all + (size_t)n * sp_W, sp_W, w, h, causal_v[n] != 0);
-  __syncwarp();
-
-  const uint32_t pL = (uint32_t)(pLSB_v[n] - 1);
-  const uint32_t half = 1u << (pL - 1);
-  const bool has_mr = has_mr_v[n] != 0;
-  const uint32_t* mrw = mrw_all + (size_t)n * mr_W;
-  const int x = 2 * lane;                  // this lane's columns x, x + 1
-  const bool mine = x < W;
-  int base = 0;                            // MagRef rank of the stripe
-  for (int r0 = 0; r0 < h; r0 += 4) {
-    const int sh = min(4, h - r0);
-    uint32_t col0 = 0, col1 = 0;           // sigma of columns x, x + 1
-    for (int r = 0; r < sh; ++r) {
-      const uint64_t row = s.sig[r0 + r];
-      col0 |= (uint32_t)((row >> x) & 1u) << r;
-      col1 |= (uint32_t)((row >> (x + 1)) & 1u) << r;
-    }
-    const int cnt = __popc(col0) + __popc(col1);
-    int incl = cnt;                        // warp inclusive scan
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += t;
-    }
-    const int rank0 = base + incl - cnt;   // rank of column x's first
-    base += __shfl_sync(kFull, incl, 31);
-    if (mine) {
-      for (int r = 0; r < sh; ++r) {
-        const int y = r0 + r;
-        const uint2 in = *reinterpret_cast<const uint2*>(mu + y * W + x);
-        uint32_t v[2] = {in.x, in.y};
-        const uint32_t col[2] = {col0, col1};
-        const int rk[2] = {rank0 + __popc(col0 & ((1u << r) - 1u)),
-                           rank0 + __popc(col0) +
-                               __popc(col1 & ((1u << r) - 1u))};
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          if (x + k >= w) {
-            v[k] = 0u;
-            continue;
-          }
-          if (has_mr && ((col[k] >> r) & 1u)) {
-            const int wi = min(rk[k] >> 5, mr_W - 1);
-            const uint32_t bit = (__ldg(mrw + wi) >> (rk[k] & 31)) & 1u;
-            v[k] = (v[k] & ((0xFFFFFFFEu | bit) << pL)) | half;
-          }
-          if ((s.ref[y] >> (x + k)) & 1u) v[k] |= (1u << pL) | half;
-          if ((s.sgn[y] >> (x + k)) & 1u) v[k] |= 0x80000000u;
-        }
-        *reinterpret_cast<uint2*>(out + y * W + x) = make_uint2(v[0], v[1]);
-      }
-    }
-  }
-  if (mine)
-    for (int y = h; y < H; ++y)
-      *reinterpret_cast<uint2*>(out + y * W + x) = make_uint2(0u, 0u);
+  const size_t hw = (size_t)4 * qh * qw;
+  const int nw = ((qh + 1) >> 1) * ((qw + 3) >> 2);
+  magref_codeblock<CPL>(threadIdx.x & 31, mu_in + n * hw,
+                        sig_in + (size_t)n * qh * qw,
+                        mrw_all + (size_t)n * mr_W, mr_W, pLSB_v[n],
+                        has_mr_v[n] != 0, qw, qh, w, h,
+                        words_all + (size_t)n * nw, mu_out + n * hw);
 }
 
 }  // namespace
 
-// Plain C entry point (ctypes): device pointers from torch tensors (bool
+// Plain C entry points (ctypes): device pointers from torch tensors (bool
 // tensors are one byte per element), the CUDA stream from
-// torch.cuda.current_stream().cuda_stream. Launches on that stream without
-// synchronising; returns cudaGetLastError().
-extern "C" int ht_refine_launch(const void* mu, const void* sig,
-                                const void* spw, int sp_W, const void* mrw,
-                                int mr_W, const void* pLSB,
-                                const void* has_sp, const void* has_mr,
-                                const void* causal, int N, int qw, int qh,
-                                int w, int h, void* out, void* stream) {
+// torch.cuda.current_stream().cuda_stream. Each launches on that stream
+// without synchronising and returns cudaGetLastError().
+
+// SigProp's REF and sign words into `words` (N x S x G x 2 int32,
+// S = (qh + 1) / 2 stripes, G = (qw + 3) / 4 groups of 8 columns).
+extern "C" int ht_sigprop_pass_launch(const void* sig, const void* spw,
+                                      int sp_W, const void* has_sp,
+                                      const void* causal, int N, int qw,
+                                      int qh, int w, int h, void* words,
+                                      void* stream) {
+  ht_sigprop_kernel<<<(N + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)sig, (const uint32_t*)spw, sp_W,
+      (const uint8_t*)has_sp, (const uint8_t*)causal, N, qw, qh, w, h,
+      (uint2*)words);
+  return (int)cudaGetLastError();
+}
+
+// The refined raster into `out`: MagRef, and SigProp's words merged in.
+extern "C" int ht_magref_pass_launch(const void* mu, const void* sig,
+                                     const void* mrw, int mr_W,
+                                     const void* pLSB, const void* has_mr,
+                                     const void* words, int N, int qw,
+                                     int qh, int w, int h, void* out,
+                                     void* stream) {
   const int blocks = (N + kWarps - 1) / kWarps;
-  ht_refine_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)mu, (const int32_t*)sig, (const uint32_t*)spw, sp_W,
-      (const uint32_t*)mrw, mr_W, (const int32_t*)pLSB,
-      (const uint8_t*)has_sp, (const uint8_t*)has_mr,
-      (const uint8_t*)causal, N, qw, qh, w, h, (uint32_t*)out);
+  auto* kernel = qw > 16 ? ht_magref_kernel<2> : ht_magref_kernel<1>;
+  kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)mu, (const int32_t*)sig, (const uint32_t*)mrw, mr_W,
+      (const int32_t*)pLSB, (const uint8_t*)has_mr, (const uint2*)words, N,
+      qw, qh, w, h, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -48,10 +48,25 @@ that neighbour alone) and part on random refinement bits, where this
 module equals the oracle and the JAX function does not
 (tests/test_torch_refine.py).
 
-``refine_ref`` is the plain PyTorch version (int64 arithmetic masked to
-32 bits: torch's CPU uint32 lacks shifts and comparisons). The wrapper
-``decode_refinement_scan`` takes it for CPU tensors and launches the CUDA
-kernel ``csrc/ht_refine.cu`` for CUDA tensors.
+The two passes touch disjoint samples, and SigProp reads only the
+cleanup's sigma and its own REF bits, so they run one after the other, as
+two kernels of ``csrc/ht_refine.cu`` with a plain version each (int64
+arithmetic masked to 32 bits: torch's CPU uint32 lacks shifts and
+comparisons):
+
+  ``ht_sigprop_pass`` / ``sigprop_pass_ref`` (sig, spw, has_sp, causal):
+      SigProp's REF and sign bits as words, int32 (N, S, G, 2) with
+      S = (qh + 1) // 2 stripes and G = (qw + 3) // 4 groups of 8 columns:
+      word [s, g, 0] holds the samples of stripe s, columns 8g .. 8g + 7,
+      that SigProp made significant, bit 4 * (x % 8) + y % 4 (scan
+      order); word [s, g, 1] their signs in that order, bit k the sign of
+      the k-th; zero elsewhere;
+  ``ht_magref_pass`` / ``magref_pass_ref`` (mu, sig, mrw, pLSB, has_mr,
+      words): the refined raster, MagRef applied and SigProp's words
+      merged in, zero outside (h, w).
+
+``refine_ref`` is their composition. The wrapper ``decode_refinement_scan``
+takes it for CPU tensors and launches the two kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -91,35 +106,65 @@ def _raster_order(f, h: int, w: int):
     return torch.cat(rows, 1)
 
 
-def refine_ref(mu, sig, spw, mrw, pLSB, has_sp, has_mr, causal, qw: int,
-               qh: int, w: int, h: int):
-    """Plain PyTorch SigProp + MagRef (see the module docstring): all lanes
-    in lockstep, MagRef as a rank and a gather, SigProp block by block
-    with a 32-bit peek per block."""
-    dev = mu.device
-    N = mu.shape[0]
-    H, W = 2 * qh, 2 * qw
-    pL = pLSB.to(_I64)[:, None] - 1
-    yy = torch.arange(H, device=dev)[:, None]
-    xx = torch.arange(W, device=dev)[None, :]
+def _word_dims(qw: int, qh: int):
+    """(S, G) of SigProp's words: stripes of the raster, 8-column groups."""
+    return (qh + 1) // 2, (qw + 3) // 4
+
+
+def _pack_words(ref, sgn, qw: int, qh: int):
+    """(N, 2qh, 2qw) REF and sign bits (0/1) -> (N, S, G, 2) int32 words:
+    REF at bit 4 * (x % 8) + y % 4 of word [y // 4, x // 8, 0], the signs
+    of a word's REF samples in that order in word [.., 1]."""
+    N = ref.shape[0]
+    S, G = _word_dims(qw, qh)
+
+    def scan(m):        # (N, S, G, 32), bit k of the group at [..., k]
+        m = F.pad(m.to(_I64), (0, 8 * G - 2 * qw, 0, 4 * S - 2 * qh))
+        return m.reshape(N, S, 4, G, 8).permute(0, 1, 3, 4, 2) \
+            .reshape(N, S, G, 32)
+    r, sg = scan(ref), scan(sgn)
+    nth = torch.cumsum(r, -1) - r
+    shifts = torch.arange(32, device=ref.device)
+    return _to_i32_bits(torch.stack([(r << shifts).sum(-1),
+                                     ((sg & r) << nth).sum(-1)], -1))
+
+
+def _unpack_words(words, qw: int, qh: int):
+    """Inverse of ``_pack_words``: (REF, sign) int64 0/1, (N, 2qh, 2qw)."""
+    N = words.shape[0]
+    S, G = _word_dims(qw, qh)
+    u = words.to(_I64) & _U32
+    r = (u[..., 0, None] >> torch.arange(32, device=words.device)) & 1
+    sg = ((u[..., 1, None] >> (torch.cumsum(r, -1) - r)) & 1) & r
+    m = torch.stack([r, sg], 3).reshape(N, S, G, 2, 8, 4) \
+        .permute(0, 3, 1, 5, 2, 4)
+    m = m.reshape(N, 2, 4 * S, 8 * G)[:, :, :2 * qh, :2 * qw]
+    return m[:, 0], m[:, 1]
+
+
+def _sigma(sig, qw: int, qh: int, w: int, h: int):
+    """(N, 2qh, 2qw) int64 0/1 sigma of the quad patterns, zero outside
+    (h, w), and that validity mask. Corner i of a quad sits at (dy, dx) =
+    (i & 1, i >> 1)."""
+    yy = torch.arange(2 * qh, device=sig.device)[:, None]
+    xx = torch.arange(2 * qw, device=sig.device)[None, :]
     valid = (yy < h) & (xx < w)
-    ras = torch.where(valid, mu.to(_I64) & _U32, 0)
-    # corner i of a quad sits at (dy, dx) = (i & 1, i >> 1)
     sig_up = sig.to(_I64).repeat_interleave(2, 1).repeat_interleave(2, 2)
-    sigp = torch.where(valid, (sig_up >> ((yy & 1) + 2 * (xx & 1))) & 1, 0)
+    return (torch.where(valid, (sig_up >> ((yy & 1) + 2 * (xx & 1))) & 1, 0),
+            valid)
 
-    # ---- MagRef: exclusive rank of sigma in scan order, one gather
-    sig_f = _scan_order(sigp, h, w)
-    rank = torch.cumsum(sig_f, 1) - sig_f
-    words = mrw.to(_I64) & _U32
-    widx = (rank >> 5).clamp(max=words.shape[1] - 1)
-    bit = (torch.gather(words, 1, widx) >> (rank & 31)) & 1
-    val_f = _scan_order(ras, h, w)
-    newv = (val_f & (((0xFFFFFFFE | bit) << pL) & _U32)) | (1 << (pL - 1))
-    val_f = torch.where((sig_f == 1) & has_mr[:, None], newv, val_f)
-    ras[:, :h, :w] = _raster_order(val_f, h, w)
 
-    # ---- SigProp: static neighbourhood sigma (zero ring outside)
+def sigprop_pass_ref(sig, spw, has_sp, causal, qw: int, qh: int, w: int,
+                     h: int):
+    """Plain SigProp: its REF and sign words (N, S, G, 2) int32 (see the
+    module docstring). All lanes in lockstep, block by block with a 32-bit
+    peek per block."""
+    dev = sig.device
+    N = sig.shape[0]
+    H, W = 2 * qh, 2 * qw
+    sigp, _valid = _sigma(sig, qw, qh, w, h)
+    # static neighbourhood sigma (zero ring outside)
+    yy = torch.arange(H, device=dev)[:, None]
     sp = F.pad(sigp, (1, 1, 1, 1))
     nbr = lambda dy, dx: sp[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
     or5 = nbr(-1, -1) | nbr(-1, 0) | nbr(-1, 1) | nbr(0, -1) | nbr(0, 1)
@@ -138,6 +183,8 @@ def refine_ref(mu, sig, spw, mrw, pLSB, has_sp, has_mr, causal, qw: int,
 
     pos = torch.zeros(N, dtype=_I64, device=dev)
     zero = torch.zeros(N, dtype=_I64, device=dev)
+    REF = torch.zeros((N, H, W), dtype=_I64, device=dev)
+    SGN = torch.zeros_like(REF)
     above = [zero] * (w + 2)            # REF of the row above, cols -1..w
     for r0, sh in _stripes(h):
         # REF / sign of this stripe, [row][col + 1] (col -1 stays zero)
@@ -172,51 +219,138 @@ def refine_ref(mu, sig, spw, mrw, pLSB, has_sp, has_mr, causal, qw: int,
                     sgn[r][x + 1] = torch.where(sneed, (win >> off) & 1, 0)
                     off = off + sneed
             pos = pos + off
-        R = torch.stack([torch.stack(row[1:], 1) for row in ref], 1)
-        S = torch.stack([torch.stack(row[1:], 1) for row in sgn], 1)
-        ras[:, r0:r0 + sh, :w] |= (R << pL[:, :, None]) \
-            | (R << (pL[:, :, None] - 1)) | (S << 31)
+        REF[:, r0:r0 + sh, :w] = torch.stack(
+            [torch.stack(row[1:], 1) for row in ref], 1)
+        SGN[:, r0:r0 + sh, :w] = torch.stack(
+            [torch.stack(row[1:], 1) for row in sgn], 1)
         above = [zero] + ref[sh - 1][1:] + [zero]
+    return _pack_words(REF, SGN, qw, qh)
+
+
+def magref_pass_ref(mu, sig, mrw, pLSB, has_mr, words, qw: int, qh: int,
+                    w: int, h: int):
+    """Plain MagRef, with SigProp's words merged in: the refined raster
+    (N, 2qh, 2qw) int32, zero outside (h, w). MagRef is a rank and a
+    gather."""
+    pL = pLSB.to(_I64)[:, None] - 1
+    sigp, valid = _sigma(sig, qw, qh, w, h)
+    ras = torch.where(valid, mu.to(_I64) & _U32, 0)
+    # exclusive rank of sigma in scan order, one gather
+    sig_f = _scan_order(sigp, h, w)
+    rank = torch.cumsum(sig_f, 1) - sig_f
+    mrws = mrw.to(_I64) & _U32
+    widx = (rank >> 5).clamp(max=mrws.shape[1] - 1)
+    bit = (torch.gather(mrws, 1, widx) >> (rank & 31)) & 1
+    val_f = _scan_order(ras, h, w)
+    newv = (val_f & (((0xFFFFFFFE | bit) << pL) & _U32)) | (1 << (pL - 1))
+    val_f = torch.where((sig_f == 1) & has_mr[:, None], newv, val_f)
+    ras[:, :h, :w] = _raster_order(val_f, h, w)
+    # SigProp's new significant samples: | 1 << pL | 1 << (pL - 1) | sign
+    R, S = (m[:, :h, :w] for m in _unpack_words(words, qw, qh))
+    pL = pL[:, :, None]
+    ras[:, :h, :w] |= (R << pL) | (R << (pL - 1)) | (S << 31)
     return _to_i32_bits(ras)
+
+
+def refine_ref(mu, sig, spw, mrw, pLSB, has_sp, has_mr, causal, qw: int,
+               qh: int, w: int, h: int):
+    """Plain PyTorch SigProp + MagRef (see the module docstring):
+    ``magref_pass_ref`` merging ``sigprop_pass_ref``'s words."""
+    words = sigprop_pass_ref(sig, spw, has_sp, causal, qw, qh, w, h)
+    return magref_pass_ref(mu, sig, mrw, pLSB, has_mr, words, qw, qh, w, h)
+
+
+def _check_shape(qw: int, qh: int, w: int, h: int):
+    if not (1 <= qw <= 32 and 1 <= qh <= 32 and 1 <= w <= 2 * qw
+            and 1 <= h <= 2 * qh):
+        raise ValueError(f"qw={qw}, qh={qh}, w={w}, h={h}: the kernels "
+                         "cover codeblocks up to 64x64 inside their raster")
+
+
+def _check_words(t, name, dev, N):
+    check_tensor(t, name, torch.int32, dev, 2, N)
+    if t.shape[1] == 0:
+        raise ValueError(f"{name} has no words")
+
+
+def ht_sigprop_pass(sig, spw, has_sp, causal, qw: int, qh: int, w: int,
+                    h: int):
+    """SigProp's REF and sign words (N, S, G, 2) int32. CPU tensors take
+    ``sigprop_pass_ref``; CUDA tensors launch ``ht_sigprop_pass`` of
+    ``csrc/ht_refine.cu``."""
+    dev = _device_of(sig)
+    if dev.type == "cpu":
+        return sigprop_pass_ref(sig, spw, has_sp, causal, qw, qh, w, h)
+    _check_shape(qw, qh, w, h)
+    N = sig.shape[0]
+    check_tensor(sig, "sig", torch.int32, dev, 3, N)
+    if tuple(sig.shape) != (N, qh, qw):
+        raise ValueError(f"sig {tuple(sig.shape)} does not match qw={qw}, "
+                         f"qh={qh}")
+    _check_words(spw, "spw", dev, N)
+    for name, t in dict(has_sp=has_sp, causal=causal).items():
+        check_tensor(t, name, torch.bool, dev, 1, N)
+    words = torch.empty((N, *_word_dims(qw, qh), 2), dtype=torch.int32,
+                        device=dev)
+    if N == 0:
+        return words
+    err = build.load().lib.ht_sigprop_pass_launch(
+        sig.data_ptr(), spw.data_ptr(), spw.shape[1], has_sp.data_ptr(),
+        causal.data_ptr(), N, qw, qh, w, h, words.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "ht_sigprop_pass_launch")
+    ht_sigprop_pass.launches += 1
+    return words
+
+
+def ht_magref_pass(mu, sig, mrw, pLSB, has_mr, words, qw: int, qh: int,
+                   w: int, h: int):
+    """The refined raster (N, 2qh, 2qw) int32: MagRef, SigProp's `words`
+    merged in. CPU tensors take ``magref_pass_ref``; CUDA tensors launch
+    ``ht_magref_pass`` of ``csrc/ht_refine.cu``."""
+    dev = _device_of(mu)
+    if dev.type == "cpu":
+        return magref_pass_ref(mu, sig, mrw, pLSB, has_mr, words, qw, qh, w,
+                               h)
+    _check_shape(qw, qh, w, h)
+    N = mu.shape[0]
+    for name, t, shape in (("mu", mu, (N, 2 * qh, 2 * qw)),
+                           ("sig", sig, (N, qh, qw)),
+                           ("words", words, (N, *_word_dims(qw, qh), 2))):
+        check_tensor(t, name, torch.int32, dev, len(shape), N)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                             f"qw={qw}, qh={qh}")
+    _check_words(mrw, "mrw", dev, N)
+    check_tensor(pLSB, "pLSB", torch.int32, dev, 1, N)
+    check_tensor(has_mr, "has_mr", torch.bool, dev, 1, N)
+    out = torch.empty_like(mu)
+    if N == 0:
+        return out
+    err = build.load().lib.ht_magref_pass_launch(
+        mu.data_ptr(), sig.data_ptr(), mrw.data_ptr(), mrw.shape[1],
+        pLSB.data_ptr(), has_mr.data_ptr(), words.data_ptr(), N, qw, qh, w,
+        h, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "ht_magref_pass_launch")
+    ht_magref_pass.launches += 1
+    return out
 
 
 def decode_refinement_scan(mu, sig, spw, mrw, pLSB, has_sp, has_mr, causal,
                            qw: int, qh: int, w: int, h: int):
     """Refined samples (N, 2qh, 2qw) int32. CPU tensors take
-    ``refine_ref``; CUDA tensors launch ``csrc/ht_refine.cu``."""
-    dev = _device_of(mu)
-    if dev.type == "cpu":
+    ``refine_ref``; CUDA tensors launch the two kernels of
+    ``csrc/ht_refine.cu``: ``ht_sigprop_pass``, then ``ht_magref_pass``
+    merging its words."""
+    if _device_of(mu).type == "cpu":
         return refine_ref(mu, sig, spw, mrw, pLSB, has_sp, has_mr, causal,
                           qw, qh, w, h)
-    if not (1 <= qw <= 32 and 1 <= qh <= 32 and 1 <= w <= 2 * qw
-            and 1 <= h <= 2 * qh):
-        raise ValueError(f"qw={qw}, qh={qh}, w={w}, h={h}: the kernel "
-                         "covers codeblocks up to 64x64 inside their raster")
-    N = mu.shape[0]
-    check_tensor(mu, "mu", torch.int32, dev, 3, N)
-    check_tensor(sig, "sig", torch.int32, dev, 3, N)
-    if tuple(mu.shape) != (N, 2 * qh, 2 * qw) \
-            or tuple(sig.shape) != (N, qh, qw):
-        raise ValueError(f"mu {tuple(mu.shape)} / sig {tuple(sig.shape)} do "
-                         f"not match qw={qw}, qh={qh}")
-    for name, t in dict(spw=spw, mrw=mrw).items():
-        check_tensor(t, name, torch.int32, dev, 2, N)
-        if t.shape[1] == 0:
-            raise ValueError(f"{name} has no words")
-    check_tensor(pLSB, "pLSB", torch.int32, dev, 1, N)
-    for name, t in dict(has_sp=has_sp, has_mr=has_mr, causal=causal).items():
-        check_tensor(t, name, torch.bool, dev, 1, N)
-    out = torch.empty_like(mu)
-    if N == 0:
-        return out
-    err = build.load().lib.ht_refine_launch(
-        mu.data_ptr(), sig.data_ptr(), spw.data_ptr(), spw.shape[1],
-        mrw.data_ptr(), mrw.shape[1], pLSB.data_ptr(), has_sp.data_ptr(),
-        has_mr.data_ptr(), causal.data_ptr(), N, qw, qh, w, h,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "ht_refine_launch")
+    words = ht_sigprop_pass(sig, spw, has_sp, causal, qw, qh, w, h)
+    out = ht_magref_pass(mu, sig, mrw, pLSB, has_mr, words, qw, qh, w, h)
     decode_refinement_scan.launches += 1
     return out
 
 
-decode_refinement_scan.launches = 0     # CUDA kernel launches
+ht_magref_pass.launches = 0             # CUDA kernel launches
+ht_sigprop_pass.launches = 0            # CUDA kernel launches
+decode_refinement_scan.launches = 0     # calls that launched the pair

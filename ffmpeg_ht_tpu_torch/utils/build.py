@@ -7,8 +7,9 @@ source, all started together, and linked into one shared library,
 ``build/ffmpeg_ht_tpu_torch/libhtkernels.so`` under the repository root,
 which is loaded with ``ctypes``. No PyTorch header is included, so a
 build takes seconds rather than minutes. The library is rebuilt when any
-source is newer than it. A missing ``nvcc`` or a failed compile raises:
-there is no fallback.
+source is newer than it; the build's nvcc output (ptxas registers and
+shared memory) is kept beside it and loaded with it. A missing ``nvcc``
+or a failed compile raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "ffmpeg_ht_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libhtkernels.so")
+LOG_PATH = LIB_PATH + ".log"         # the build's nvcc output
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -48,10 +50,14 @@ _SIGNATURES = {
     "ict_writeframe_launch": [_P, _P, _P, _I,            # y0s..y2s, frames
                               _I64, _I, _P, _I64,        # n, cbps, out, stride
                               _I, _I, _P],               # kind, mode, stream
-    "ht_refine_launch": [_P, _P, _P, _I, _P, _I,         # mu, sig, spw, mrw
-                         _P, _P, _P, _P,                 # per-lane vectors
-                         _I, _I, _I, _I, _I,             # N, qw, qh, w, h
-                         _P, _P],                        # out, stream
+    "ht_sigprop_pass_launch": [_P, _P, _I,               # sig, spw
+                               _P, _P,                   # has_sp, causal
+                               _I, _I, _I, _I, _I,       # N, qw, qh, w, h
+                               _P, _P],                  # words, stream
+    "ht_magref_pass_launch": [_P, _P, _P, _I,            # mu, sig, mrw
+                              _P, _P, _P,                # pLSB, has_mr, words
+                              _I, _I, _I, _I, _I,        # N, qw, qh, w, h
+                              _P, _P],                   # out, stream
 }
 
 
@@ -62,6 +68,7 @@ class KernelLibrary:
         self.lib = lib
         self.build_seconds = build_seconds   # 0.0 when the .so was fresh
         self.log = log                       # nvcc output (ptxas -v stats)
+                                             # of the build that made it
 
 
 _LOCK = threading.Lock()
@@ -128,6 +135,9 @@ def _compile() -> str:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
+    with open(f"{LOG_PATH}.{pid}.tmp", "w") as f:
+        f.write(log)
+    os.replace(f"{LOG_PATH}.{pid}.tmp", LOG_PATH)
     os.replace(tmp, LIB_PATH)        # atomic: a concurrent loader never
     return log                       # sees a half-written library
 
@@ -140,7 +150,14 @@ def load() -> KernelLibrary:
             return _LOADED
         t0 = time.perf_counter()
         rebuild = _stale()
-        log = _compile() if rebuild else ""
+        if rebuild:
+            log = _compile()
+        else:
+            try:
+                with open(LOG_PATH) as f:
+                    log = f.read()
+            except FileNotFoundError:
+                log = ""
         secs = time.perf_counter() - t0 if rebuild else 0.0
         lib = ctypes.CDLL(LIB_PATH)
         for name, argtypes in _SIGNATURES.items():

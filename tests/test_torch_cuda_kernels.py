@@ -14,10 +14,13 @@ up to the raster), with inert lanes and lanes whose U bound fails. The
 ICT kernel matches its plain version exactly in both modes: the integer
 mode on inputs whose Q16 products wrap, the float mode (no FMA
 contraction, rint half to even) on random planes and on exact .5 ties.
-The refinement kernel (SigProp + MagRef) matches ``refine_ref`` bit for
-bit on random lanes (any sample words, quad patterns, refinement words,
-pLSB, flags) and on encoded codeblocks, where both also equal the scalar
-oracle.
+The refinement kernels (``ht_sigprop_pass``, then ``ht_magref_pass``)
+match ``refine_ref`` bit for bit, and each matches its plain half alone,
+on random lanes (any sample words, quad patterns, refinement words, pLSB,
+flags; a ragged last warp; flags alternating lane by lane; every raster
+from 8x8 to 64x64; lanes where every sigma-0 sample becomes significant,
+so that each block's 32-bit window fills) and on encoded codeblocks, where
+both also equal the scalar oracle.
 """
 
 import numpy as np
@@ -284,18 +287,55 @@ _REFINE_KEYS = ("mu", "sig", "spw", "mrw", "pLSB", "has_sp", "has_mr",
                 "causal")
 
 
+def _refine_launches():
+    return (ht_refine.ht_sigprop_pass.launches,
+            ht_refine.ht_magref_pass.launches,
+            ht_refine.decode_refinement_scan.launches)
+
+
 def _refine_both(lanes, qw, qh, w, h, cuda):
-    """(kernel output, refine_ref output) as uint32 numpy arrays."""
-    t = [torch.from_numpy(np.ascontiguousarray(lanes[k]).view(np.int32)
-                          if lanes[k].dtype == np.uint32 else lanes[k])
-         for k in _REFINE_KEYS]
-    before = ht_refine.decode_refinement_scan.launches
-    got = ht_refine.decode_refinement_scan(*[x.to(cuda) for x in t], qw, qh,
-                                           w, h)
+    """(kernel output, refine_ref output) as uint32 numpy arrays, after
+    holding each kernel alone against its plain half: ``ht_sigprop_pass``
+    (its words) and ``ht_magref_pass`` given the plain words."""
+    t = dict(zip(_REFINE_KEYS, (
+        torch.from_numpy(np.ascontiguousarray(lanes[k]).view(np.int32)
+                         if lanes[k].dtype == np.uint32 else lanes[k])
+        for k in _REFINE_KEYS)))
+    c = {k: v.to(cuda) for k, v in t.items()}
+    s_in = ("sig", "spw", "has_sp", "causal")
+    m_in = ("mu", "sig", "mrw", "pLSB", "has_mr")
+    before = _refine_launches()
+    words = ht_refine.ht_sigprop_pass(*[c[k] for k in s_in], qw, qh, w, h)
+    words_r = ht_refine.sigprop_pass_ref(*[t[k] for k in s_in], qw, qh, w,
+                                         h)
+    assert torch.equal(words.cpu(), words_r)
+    got_m = ht_refine.ht_magref_pass(*[c[k] for k in m_in],
+                                     words_r.to(cuda), qw, qh, w, h)
+    want = ht_refine.magref_pass_ref(*[t[k] for k in m_in], words_r, qw, qh,
+                                     w, h)
+    assert torch.equal(got_m.cpu(), want)
+    got = ht_refine.decode_refinement_scan(*c.values(), qw, qh, w, h)
     torch.cuda.synchronize()
-    assert ht_refine.decode_refinement_scan.launches == before + 1
-    want = ht_refine.refine_ref(*t, qw, qh, w, h)
+    assert _refine_launches() == (before[0] + 2, before[1] + 2,
+                                  before[2] + 1)
+    assert torch.equal(ht_refine.refine_ref(*t.values(), qw, qh, w, h),
+                       want)
     return got.cpu().numpy().view(np.uint32), want.numpy().view(np.uint32)
+
+
+def _random_refine_lanes(rng, n, qw, qh, sp_words=40):
+    """n random lanes: any words, patterns, pLSB and has_sp / has_mr /
+    causal mix."""
+    u32 = lambda *shape: rng.integers(0, 2 ** 32, shape, dtype=np.uint64) \
+        .astype(np.uint32)
+    return dict(
+        mu=u32(n, 2 * qh, 2 * qw),
+        sig=(rng.integers(0, 16, (n, qh, qw))
+             * (rng.random((n, qh, qw)) < rng.random())).astype(np.int32),
+        spw=u32(n, sp_words), mrw=u32(n, 24),
+        pLSB=rng.integers(2, 31, n).astype(np.int32),
+        has_sp=rng.random(n) < 0.8, has_mr=rng.random(n) < 0.6,
+        causal=rng.random(n) < 0.5)
 
 
 @pytest.mark.parametrize("qw,qh,n,seed", [(32, 32, 67, 31), (16, 16, 130, 32),
@@ -304,20 +344,42 @@ def _refine_both(lanes, qw, qh, w, h, cuda):
 def test_refine_kernel_matches_ref_random(cuda, qw, qh, n, seed):
     """Random lanes: any words, patterns, pLSB and has_sp / has_mr / causal
     mix; codeblock one sample narrower and shorter than the raster."""
-    rng = np.random.default_rng(seed)
-    u32 = lambda *shape: rng.integers(0, 2 ** 32, shape, dtype=np.uint64) \
-        .astype(np.uint32)
-    lanes = dict(
-        mu=u32(n, 2 * qh, 2 * qw),
-        sig=(rng.integers(0, 16, (n, qh, qw))
-             * (rng.random((n, qh, qw)) < rng.random())).astype(np.int32),
-        spw=u32(n, 40), mrw=u32(n, 24),
-        pLSB=rng.integers(2, 31, n).astype(np.int32),
-        has_sp=rng.random(n) < 0.8, has_mr=rng.random(n) < 0.6,
-        causal=rng.random(n) < 0.5)
+    lanes = _random_refine_lanes(np.random.default_rng(seed), n, qw, qh)
     w, h = max(2 * qw - 1, 1), max(2 * qh - 1, 1)
     got, want = _refine_both(lanes, qw, qh, w, h, cuda)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("case,q,n", [
+    ("random", 16, 1), ("random", 16, 33), ("random", 16, 1000),
+    ("random", 4, 70), ("random", 8, 70), ("random", 32, 70),
+    ("dense", 8, 37), ("dense", 16, 37), ("dense", 32, 37),
+    ("alternating", 16, 64), ("alternating", 32, 45)])
+def test_refine_kernels_cases(cuda, case, q, n):
+    """A q x q quad raster (8x8 .. 64x64) holding a codeblock one sample
+    narrower and shorter. N of 1, 33 and 1000 leave the last warp of the
+    SigProp kernel ragged. "dense": the raster's first row significant and
+    all-ones SigProp words on even lanes, so every other sigma-0 sample
+    becomes significant, each 4x4 block reads 32 bits and the windows
+    cross word boundaries. "alternating": has_sp, has_mr and causal change
+    lane by lane."""
+    rng = np.random.default_rng(q * 1000 + n)
+    w = h = 2 * q - 1
+    lanes = _random_refine_lanes(rng, n, q, q, 2 * q * q // 8 + 2)
+    i = np.arange(n)
+    if case == "dense":
+        lanes["sig"][:] = 0
+        lanes["sig"][:, 0] = 5               # corners (0, 0) and (0, 1)
+        lanes["spw"][::2] = 0xFFFFFFFF
+        lanes["has_sp"][:] = True
+    elif case == "alternating":
+        lanes.update(has_sp=i % 2 == 0, has_mr=i % 3 != 1,
+                     causal=(i // 2) % 2 == 1)
+    got, want = _refine_both(lanes, q, q, w, h, cuda)
+    assert np.array_equal(got, want)
+    if case == "dense":
+        pL = lanes["pLSB"][::2, None, None].astype(np.uint32) - 1
+        assert ((want[::2, 1:h, :w] >> pL) & 1).all()
 
 
 def _encoded_refine_lanes(rng, w, h, n, causal):
@@ -395,3 +457,7 @@ def test_refine_kernel_rejects_bad_args(cuda):
     with pytest.raises(ValueError):                  # sig of another shape
         ht_refine.decode_refinement_scan(args[0], z(n, 8, 7), *args[2:],
                                          qw, qh, 16, 16)
+    words = ht_refine.ht_sigprop_pass(args[1], args[2], b, b, qw, qh, 16, 16)
+    with pytest.raises(ValueError):                  # words of another shape
+        ht_refine.ht_magref_pass(args[0], args[1], args[3], args[4], b,
+                                 words[:, :, :1], qw, qh, 16, 16)

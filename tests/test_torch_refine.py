@@ -10,7 +10,11 @@ shapes of tests/test_ht_refine.py (32x32 and 17x29; causal at 32x32 and
 the scalar oracle ``decode_htj2k``. On random refinement bits the port
 follows the oracle where the JAX function leaves out the above-right
 neighbour on a stripe's first row (see the ops/ht_refine docstring).
-CPU tensors never launch the CUDA kernel.
+``refine_ref`` is the composition of the two passes' plain halves,
+``magref_pass_ref`` merging ``sigprop_pass_ref``'s words; the halves are
+also run one by one and held against the same references, and the
+wrappers of the two kernels take them for CPU tensors. CPU tensors never
+launch a CUDA kernel.
 """
 
 import numpy as np
@@ -108,6 +112,25 @@ def run_port(a, w, h):
     return out.numpy().view(np.uint32)
 
 
+def run_halves(a, w, h):
+    """SigProp then MagRef through the two kernels' wrappers on CPU
+    tensors (their plain halves), checked against the halves called
+    directly: (refined samples, SigProp's REF and sign bits (N, 2qh,
+    2qw))."""
+    t = {k: torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32
+                             else v) for k, v in a.items()}
+    qw, qh = -(-w // 2), -(-h // 2)
+    s_in = (t["sig"], t["spw"], t["has_sp"], t["causal"], qw, qh, w, h)
+    words = ht_refine.sigprop_pass_ref(*s_in)
+    assert torch.equal(ht_refine.ht_sigprop_pass(*s_in), words)
+    m_in = (t["mu"], t["sig"], t["mrw"], t["pLSB"], t["has_mr"], words, qw,
+            qh, w, h)
+    got = ht_refine.magref_pass_ref(*m_in)
+    assert torch.equal(ht_refine.ht_magref_pass(*m_in), got)
+    return got.numpy().view(np.uint32), ht_refine._unpack_words(words, qw,
+                                                                qh)
+
+
 def run_jax(a, w, h):
     j = {k: jnp.asarray(v) for k, v in a.items()}
     return np.asarray(jax_refine(**j, qw=-(-w // 2), qh=-(-h // 2), w=w,
@@ -141,6 +164,47 @@ def test_refine_ref_matches_jax_and_oracle(w, h, causal):
         # the flag takes effect: decoded as non-causal, some lane differs
         nc = dict(a, causal=np.zeros_like(a["causal"]))
         assert not np.array_equal(run_port(nc, w, h), got)
+
+
+@pytest.mark.parametrize("w,h,causal,random_bits", [
+    (32, 32, False, False), (17, 29, False, False), (32, 32, True, False),
+    (20, 19, True, False), (32, 32, False, True)])
+def test_refine_halves_compose_to_refine_ref(w, h, causal, random_bits):
+    """magref_pass_ref merging sigprop_pass_ref's words equals refine_ref
+    and the oracle on every lane; on the encoder's streams also the JAX
+    function; on random refinement bits (after the encoder's cleanup
+    segments) the JAX function departs, as in the test below. The words
+    hold exactly the samples SigProp made significant (inside the
+    codeblock, insignificant after the cleanup, their pLSB bit set in the
+    result) and their signs."""
+    rng = np.random.default_rng(w * 100 + h + causal + 7 * random_bits)
+    blocks = _blocks(rng, w, h, causal, (3,) if causal or random_bits
+                     else (3, 2, 1), 0.9 if random_bits else
+                     0.6 if causal else None)
+    if random_bits:
+        blocks = [(bytes(d[:lcup]) + rng.integers(0, 256, 200, np.uint8)
+                   .tobytes(), lcup, 200, int(rng.choice([2, 3])))
+                  for d, lcup, _lref, _ in blocks]
+    a = lane_arrays(blocks, w, h, causal)
+    got, (ref, sgn) = run_halves(a, w, h)
+    assert np.array_equal(got, run_port(a, w, h))
+    for i, want in enumerate(oracle(blocks, w, h, causal)):
+        assert np.array_equal(got[i, :h, :w], want), f"lane {i}"
+    assert np.array_equal(run_jax(a, w, h), got) != random_bits
+    qw, qh = -(-w // 2), -(-h // 2)
+    sig_px = (np.repeat(np.repeat(a["sig"], 2, 1), 2, 2)
+              >> ((np.arange(2 * qh)[:, None] & 1)
+                  + 2 * (np.arange(2 * qw)[None] & 1))) & 1
+    inside = np.zeros((2 * qh, 2 * qw), bool)
+    inside[:h, :w] = True
+    ref, sgn = ref.numpy() == 1, sgn.numpy() == 1
+    assert ref.any() and not (ref & ~(inside & (sig_px == 0))).any()
+    assert not (sgn & ~ref).any()
+    pL = (a["pLSB"][:, None, None] - 1).astype(np.uint32)
+    assert np.array_equal(ref[:, :h, :w] & (sig_px[:, :h, :w] == 0),
+                          ((got >> pL) & 1 == 1)[:, :h, :w]
+                          & (sig_px[:, :h, :w] == 0))
+    assert np.array_equal(sgn, ref & (got >> 31 == 1))
 
 
 def test_refine_ref_random_bits_follow_the_oracle():
