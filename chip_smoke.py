@@ -13,8 +13,11 @@ four 1920x1080 8-bit RGB lossy frames (9/7 + ICT, 64x64 codeblocks, one
 ``Decoder(device="cuda", bitexact=True).decode_stream``; and config 4
 (bench.py:418-447), 10-bit gray lossless with 1024x1024 tiles, 64x64
 codeblocks and precincts and two HT quality layers, cut from 7680x4320
-to a 2048x2048 crop, through the v2 bucketed path. Phases, one
-line or more each; any failure raises and the script exits non-zero:
+to a 2048x2048 crop, through the v2 bucketed path; and config 5
+(bench.py:451-480), four DCI-4K frames of config 3 muxed into an MXF,
+through ``Decoder(device="cuda", bitexact=True, wire_pack=True)`` and the
+CLI. Phases, one line or more each; any failure raises and the script
+exits non-zero:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ffmpeg_ht_tpu_torch/csrc and the port's
@@ -62,7 +65,24 @@ line or more each; any failure raises and the script exits non-zero:
      10-bit RCT (== source), RGB 8-bit 9/7 + ICT (integer == host
      oracle, float within 1 LSB), vertically stripe-causal (the object
      path, == source), ``max_layers=1`` and ``reduction_factor=1``
-     (== the host oracle with the same option).
+     (== the host oracle with the same option); then ``decode_batch``
+     [A, B, A, B] once more with ``wire_pack=True`` (as bench.py's c4:
+     every frame == source, one wire_pack launch at the end of the
+     BucketProgram) and the batch's fetch and unpack ms with and without
+     the pack;
+  8. config 5: phase 3's natural frame and its rolls by 3, 7 and 11
+     columns (three more encodes) muxed with ``mux_mxf`` into
+     build/c5_motion_htj2k.mxf; ``demux_mxf`` must give back the four
+     codestreams exactly; ``decode_batch`` (one F=4 program) and
+     ``decode_stream`` with ``wire_pack=True`` (counts reset before and
+     read after each: one wire_pack launch a batch, one a frame), every
+     frame equal to its source, and ``wire_pack=False`` giving the same
+     bytes; the wire_pack kernel against ``pack_words_ref`` on the
+     batch's own int16 output (time, bound, share); fetch and unpack ms
+     with and without the pack, ``decode_batch`` ms/frame both ways,
+     ``bench_resident`` ms/frame at F=4; the CLI's ``decode -f framemd5
+     --benchmark --device cuda`` on the MXF, whose framemd5 must equal
+     that of the source frames (its ``bench:`` lines printed).
 
 The last lines are the card's name and power limit, a JSON object with
 the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
@@ -71,6 +91,8 @@ network, no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -87,7 +109,10 @@ os.environ["CUDA_VISIBLE_DEVICES"] = \
 import numpy as np
 import torch
 
+from ffmpeg_ht_tpu_torch import cli
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
+from ffmpeg_ht_tpu_torch.containers import mux
+from ffmpeg_ht_tpu_torch.containers.mxf import demux_mxf, mux_mxf
 from ffmpeg_ht_tpu_torch.models import assembly as ASM
 from ffmpeg_ht_tpu_torch.models import fastpath as FP
 from ffmpeg_ht_tpu_torch.models import host_decoder
@@ -95,7 +120,7 @@ from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
-from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.utils import build, native
 
@@ -118,6 +143,10 @@ C4_ENC = dict(depth=10, tile_width=1024, tile_height=1024,
 SMALL_ENC = dict(log2_cblk_width=5, log2_cblk_height=5, nreslevels=4,
                  refinement=True, ht_layers=2)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published, at the 700 W limit
+# BASELINE config 5 (bench.py:451-480): phase 3's natural frame and its
+# rolls by these columns, muxed into an MXF
+C5_ROLLS = (3, 7, 11)
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 # the earlier cleanup kernel, one thread per codeblock, on an H100 80GB
 # HBM3 at 700 W (PERF.md, section 6): printed beside the split design
 ONE_THREAD_CLEANUP_MS = 2.46
@@ -375,7 +404,8 @@ _KERNELS = {"ht_vlc_pass": ht_scan.ht_vlc_pass,
             "ht_sigprop_pass": ht_refine.ht_sigprop_pass,
             "ht_magref_pass": ht_refine.ht_magref_pass,
             # the wrapper: one call launches the two refinement kernels
-            "ht_refine": ht_refine.decode_refinement_scan}
+            "ht_refine": ht_refine.decode_refinement_scan,
+            "wire_pack": wirepack.pack_words}
 _REFINE = ("ht_sigprop_pass", "ht_magref_pass", "ht_refine")
 
 
@@ -511,7 +541,8 @@ def _phase6(dev):
     frames = dec_f.decode_batch(streams)
     batch_counts = _counts()
     want = {"ht_vlc_pass": 1, "ht_magsgn_pass": 1, "rct_writeframe": 0,
-            "ict_writeframe": 1, **dict.fromkeys(_REFINE, 0)}
+            "ict_writeframe": 1, **dict.fromkeys(_REFINE, 0),
+            "wire_pack": 0}
     if batch_counts != want:
         raise RuntimeError(f"decode_batch launches {batch_counts}, "
                            f"expected {want}")
@@ -532,7 +563,7 @@ def _phase6(dev):
     int_counts = _counts()
     want = {"ht_vlc_pass": len(streams), "ht_magsgn_pass": len(streams),
             "rct_writeframe": 0, "ict_writeframe": len(streams),
-            **dict.fromkeys(_REFINE, 0)}
+            **dict.fromkeys(_REFINE, 0), "wire_pack": 0}
     if dec_i.v3_frames != len(streams) or dec_i.host_frames \
             or int_counts != want:
         raise RuntimeError(f"decode_stream (bitexact): v3 frames "
@@ -778,6 +809,57 @@ def _need_launched(counts, names, what):
         raise RuntimeError(f"{what}: {missing} never launched ({counts})")
 
 
+def _batch_output(dec, streams):
+    """The packed output of the program ``dec.decode_batch(streams)`` runs
+    (the V3Program, else the BucketProgram on ``_v2_args``), on the card;
+    the sample count it holds and their bits."""
+    hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+    cols = [FP.parse_frame_flat(h, fg) for h in hdrs]
+    v3 = dec._v3_program(fg, cols)
+    if v3 is not None:
+        prog, args = v3
+        return prog(**args), len(streams) * fg.geom.total, fg.geom.cbps
+    geom, fin, _accum = dec._v2_args(fg, cols)
+    return dec._dispatch_args(geom, *fin), geom.total, geom.cbps
+
+
+def _fetch_unpack(dec, streams, reps: int = 3):
+    """Where the output of ``dec.decode_batch(streams)``'s program goes
+    after the device: best-of-`reps` host-clock ms of the decoder's fetch
+    (``_start_fetch``: a page-locked buffer, the copy, the wait), of the
+    copy alone into a page-locked buffer reused across reps, and of the
+    wire unpack (``unpack_words``; 0 without the pack); the bytes
+    fetched."""
+    packed, n, cbps = _batch_output(dec, streams)
+    torch.cuda.synchronize()
+    fetch, copy, unpack = [], [], []
+    pinned = torch.empty(packed.shape, dtype=packed.dtype,
+                         pin_memory=packed.is_cuda)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        host = dec._start_fetch(packed)()
+        t1 = time.perf_counter()
+        pinned.copy_(packed)
+        t2 = time.perf_counter()
+        if packed.dtype == torch.int32:
+            words = host.numpy().view(np.uint32)
+            wirepack.unpack_words(words[:-1], cbps, n,
+                                  out=np.empty(n + 1, np.uint16))
+        t3 = time.perf_counter()
+        fetch.append((t1 - t0) * 1e3)
+        copy.append((t2 - t1) * 1e3)
+        unpack.append((t3 - t2) * 1e3)
+    return dict(fetch_ms=min(fetch), copy_ms=min(copy),
+                unpack_ms=min(unpack), mb=packed.numel()
+                * packed.element_size() / 1e6)
+
+
+def _fmt_fetch(m):
+    return (f"fetch {m['fetch_ms']:.1f} ms (copy alone {m['copy_ms']:.1f}) "
+            f"of {m['mb']:.1f} MB, unpack {m['unpack_ms']:.1f} ms")
+
+
 def _phase7(dev):
     """BASELINE config 4 (a crop) and the v2 path's other routes; returns
     (the refinement kernels' entries of the kernels line without their
@@ -874,6 +956,25 @@ def _phase7(dev):
         f"{k} {', '.join(f'{t:.1f}' for t in v)}" for k, v in times.items()))
     print("phase 7 one batch of 4, ms: " + _laps_v2(dec, batch_in, dev))
 
+    # the same batch with the wire pack, as bench.py's c4 runs it: the
+    # pack runs once, at the end of the v2 BucketProgram
+    dec_wp = Decoder(device=dev, wire_pack=True)
+    _reset_counts()
+    packed_batch = dec_wp.decode_batch(batch_in)
+    wp_counts = _counts()
+    if dec_wp.v2_frames != 4 or dec_wp.v3_frames or wp_counts["wire_pack"] \
+            != 1 or any(not _same(fr, src, 10)
+                        for fr, src in zip(packed_batch, srcs + srcs)):
+        raise RuntimeError(f"c4 decode_batch with the wire pack: v2 frames "
+                           f"{dec_wp.v2_frames}, launches {wp_counts}, or a "
+                           "frame differs from its source")
+    fu = {"plain": _fetch_unpack(dec, batch_in),
+          "wire_pack": _fetch_unpack(dec_wp, batch_in)}
+    print(f"phase 7 decode_batch [A, B, A, B] with wire_pack=True: every "
+          f"frame == source, all 4 via the BucketProgram, launches "
+          f"{wp_counts}; without the pack: {_fmt_fetch(fu['plain'])}; with "
+          f"it: {_fmt_fetch(fu['wire_pack'])}")
+
     # the v2 path's other routes, on small streams
     rng = np.random.default_rng(4042)
     gray = _grainy(rng, 256, 256)
@@ -930,8 +1031,152 @@ def _phase7(dev):
                    ("ht_sigprop_pass", "sigprop", "ht_sigprop_kernel"),
                    ("ht_magref_pass", "magref", "ht_magref_kernel"))]
     paths = {"c4_decode_stream": (stream_counts, 2),
-             "c4_decode_batch": (batch_counts, 4)}
+             "c4_decode_batch": (batch_counts, 4),
+             "c4_decode_batch_wire_pack": (wp_counts, 4)}
     return entries, clean, paths
+
+
+def _phase8(dev, natural_src, natural_stream):
+    """BASELINE config 5: four DCI-4K frames muxed into an MXF, demuxed and
+    decoded with ``Decoder(bitexact=True, wire_pack=True)`` through
+    ``decode_batch`` (one F=4 program) and ``decode_stream``, then by the
+    CLI; the wire pack kernel against its plain version on that batch's
+    own output. Returns (the kernels line's wire_pack entry without its
+    launches, {path: (launch counts, frames)})."""
+    t0 = time.perf_counter()
+    plane = natural_src[:, :, 0]
+    srcs = [natural_src] + [_rgb(np.roll(plane, k, 1)) for k in C5_ROLLS]
+    seq = [natural_stream] + [encode_frame_htj2k(x, **ENC)
+                              for x in srcs[1:]]
+    enc_s = time.perf_counter() - t0
+    os.makedirs(BUILD, exist_ok=True)
+    path = os.path.join(BUILD, "c5_motion_htj2k.mxf")
+    with open(path, "wb") as f:
+        f.write(mux_mxf(seq, W, H, ncomp=3, depth=DEPTH))
+    with open(path, "rb") as f:
+        streams = list(demux_mxf(f.read()))
+    if streams != seq:
+        raise RuntimeError("MXF round trip changed the essence")
+    print(f"phase 8 encode (port encoder): phase 3's natural frame and its "
+          f"rolls by {', '.join(map(str, C5_ROLLS))} columns, {enc_s:.1f} s;"
+          f" mux_mxf -> {os.path.getsize(path) / 1e6:.2f} MB "
+          f"({os.path.relpath(path, os.path.dirname(BUILD))}); demux_mxf "
+          f"gives back the {len(seq)} codestreams exactly")
+
+    def same(frames):
+        return len(frames) == len(srcs) and all(
+            fr.fmt.name == "rgb48le" and np.array_equal(
+                fr.planes[0].reshape(H, W, 3),
+                src.astype(np.uint16) << (16 - DEPTH))
+            for fr, src in zip(frames, srcs))
+
+    dec = Decoder(device="cuda", bitexact=True, wire_pack=True)
+    plain_dec = Decoder(device="cuda", bitexact=True)
+    F = len(streams)
+    _reset_counts()
+    frames = dec.decode_batch(streams)
+    batch_counts = _counts()
+    _reset_counts()
+    stream_frames = list(dec.decode_stream(streams))
+    stream_counts = _counts()
+    _reset_counts()
+    plain_frames = plain_dec.decode_batch(streams)
+    plain_counts = _counts()
+    if not same(frames) or not same(stream_frames):
+        raise RuntimeError("c5 frame differs from its source")
+    if [a.tobytes() for a in plain_frames] != [a.tobytes() for a in frames]:
+        raise RuntimeError("c5 decode_batch: wire_pack=False gives other "
+                           "bytes")
+    if dec.v3_frames != 2 * F or plain_dec.v3_frames != F \
+            or dec.host_frames + plain_dec.host_frames \
+            or batch_counts["wire_pack"] != 1 \
+            or stream_counts["wire_pack"] != F \
+            or plain_counts["wire_pack"] != 0:
+        raise RuntimeError(f"c5: v3 frames {dec.v3_frames} and "
+                           f"{plain_dec.v3_frames}, launches {batch_counts}, "
+                           f"{stream_counts}, {plain_counts}")
+    on_path = ("ht_vlc_pass", "ht_magsgn_pass", "rct_writeframe", "wire_pack")
+    _need_launched(batch_counts, on_path, "c5 decode_batch")
+    _need_launched(stream_counts, on_path, "c5 decode_stream")
+    print(f"phase 8 decode_batch (one program, F={F}) and decode_stream with "
+          f"wire_pack=True: every frame == source (rgb48le, << "
+          f"{16 - DEPTH}), all via the v3 device program, launches "
+          f"{batch_counts} and {stream_counts}; decode_batch with "
+          f"wire_pack=False gives the same bytes (launches {plain_counts})")
+
+    # the kernel against its plain version on the batch's own int16 output
+    packed16, n, _cbps = _batch_output(plain_dec, streams)
+    words = wirepack.pack_words(packed16, DEPTH)
+    ref, plain_ms = _plain(wirepack.pack_words_ref, packed16[:n], DEPTH)
+    err = max(int((words[:-1].to(torch.int64) - ref.to(torch.int64)).abs()
+                  .max()), abs(int(words[-1]) - int(packed16[-1])))
+    if err or int(packed16[-1]) != 1:
+        raise RuntimeError(f"wire_pack differs from pack_words_ref (max abs "
+                           f"err {err}) or the ok flag is clear")
+    ms = _cuda_ms(lambda: wirepack.pack_words(packed16, DEPTH), 20, True)
+    bound = _bound(packed16.numel() * 2 + words.numel() * 4)
+    regs = {k: v for k, v in _ptxas(build.load().log,
+                                    ("wire_pack_kernel",)).items()
+            if k.endswith(f"<{DEPTH}>")}
+    print(f"phase 8   wire_pack == pack_words_ref (+ flag word) on the "
+          f"batch's {n} samples ({packed16.numel() * 2 / 1e6:.1f} MB in, "
+          f"{words.numel() * 4 / 1e6:.1f} MB out): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {bound:.4f} ms (bytes), "
+          f"{100 * bound / ms:.1f}% of bound; ptxas: "
+          + "; ".join(f"{k}: {v}" for k, v in regs.items()))
+    del packed16, words, ref
+
+    fu = {"plain": _fetch_unpack(plain_dec, streams),
+          "wire_pack": _fetch_unpack(dec, streams)}
+    times = {"plain": [], "wire_pack": []}
+    for _ in range(REPS):
+        for key, d in (("plain", plain_dec), ("wire_pack", dec)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d.decode_batch(streams)
+            times[key].append((time.perf_counter() - t0) * 1e3 / F)
+    res = dec.bench_resident(streams, n_it=5, reps=3)
+    if res["frames_merged"] != F:
+        raise RuntimeError(f"bench_resident: {res}")
+    print(f"phase 8 without the pack: {_fmt_fetch(fu['plain'])}; with it: "
+          f"{_fmt_fetch(fu['wire_pack'])}; decode_batch ms/frame "
+          + "; ".join(f"{k} {', '.join(f'{t:.1f}' for t in v)}"
+                      for k, v in times.items())
+          + f"; bench_resident F={F}: {res['ms_per_frame']:.3f} ms/frame")
+
+    # the CLI on the MXF file
+    md5_path = os.path.join(BUILD, "c5_motion_htj2k.framemd5")
+    err_buf = io.StringIO()
+    with contextlib.redirect_stderr(err_buf):
+        rc = cli.main(["decode", path, "-f", "framemd5", "-o", md5_path,
+                       "--benchmark", "--device", "cuda"])
+    with open(md5_path) as f:
+        got = f.read()
+    fmt = frames[0].fmt
+    want = mux.framemd5([
+        host_decoder.DecodedFrame(fmt=fmt, width=W, height=H, planes=[
+            (src.astype(np.uint16) << (16 - DEPTH)).reshape(H, 3 * W)])
+        for src in srcs])
+    bench = [ln for ln in err_buf.getvalue().splitlines()
+             if ln.startswith("bench:")]
+    if rc != 0 or got != want or len(bench) != 2:
+        raise RuntimeError(f"CLI decode of the MXF: rc {rc}, framemd5 "
+                           f"{'equal' if got == want else 'differs'}, "
+                           f"{err_buf.getvalue()[-2000:]}")
+    print(f"phase 8 cli decode {os.path.basename(path)} -f framemd5 "
+          f"--benchmark --device cuda: framemd5 == the sources' ({F} "
+          f"frames); " + " | ".join(bench))
+
+    entry = dict(name="wire_pack", route="cuda",
+                 source="ffmpeg_ht_tpu_torch/csrc/wire_pack.cu",
+                 replaces="ffmpeg_ht_tpu/ops/wirepack.py:33",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                 ptxas=regs, samples=n, fetch_unpack=fu,
+                 decode_batch_ms_per_frame=times,
+                 bench_resident_ms_per_frame=res["ms_per_frame"])
+    paths = {"c5_decode_batch": (batch_counts, F),
+             "c5_decode_stream": (stream_counts, F)}
+    return entry, paths
 
 
 def main() -> int:
@@ -1040,8 +1285,8 @@ def main() -> int:
     if dec.v3_frames != len(order) or dec.host_frames:
         raise RuntimeError(f"v3 frames {dec.v3_frames}, host frames "
                            f"{dec.host_frames}")
-    if any(n != (0 if k in ("ict_writeframe", *_REFINE) else len(order))
-           for k, n in launches.items()):
+    if any(n != (0 if k in ("ict_writeframe", *_REFINE, "wire_pack")
+                 else len(order)) for k, n in launches.items()):
         raise RuntimeError(f"launches {launches}, expected one per frame "
                            f"({len(order)}), no ICT and no refinement")
     times = []
@@ -1068,6 +1313,10 @@ def main() -> int:
     # ---- phase 7: BASELINE config 4 (a crop), the v2 bucketed path
     refine_entries, c4, c4_paths = _phase7(dev)
 
+    # ---- phase 8: BASELINE config 5, an MXF of four 4K frames
+    wire_entry, c5_paths = _phase8(dev, sources["natural"],
+                                   streams["natural"])
+
     cleanup_src = "ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192"
     kernels = [
         dict(name="ht_vlc_pass", route="cuda",
@@ -1087,17 +1336,20 @@ def main() -> int:
              bound_ms=rct_bound),
         ict_entry,
         *refine_entries,
+        wire_entry,
     ]
     # every path's run is read between a reset and the next; `launches`
     # is the count on the kernel's main path, the path whose shapes its
     # ms and bound_ms were measured at: c3 decode_stream (phase 5) for the
     # kernels of the 5/3 slice, c2 decode_batch (phase 6) for ICT, c4
-    # decode_batch (phase 7) for the two refinement kernels
+    # decode_batch (phase 7) for the two refinement kernels, c5
+    # decode_batch (phase 8) for the wire pack
     paths = {"c3_decode_stream": (launches, len(order)), **c2_paths,
-             **c4_paths}
+             **c4_paths, **c5_paths}
     main_paths = {"ict_writeframe": "c2_decode_batch",
                   "ht_sigprop_pass": "c4_decode_batch",
-                  "ht_magref_pass": "c4_decode_batch"}
+                  "ht_magref_pass": "c4_decode_batch",
+                  "wire_pack": "c5_decode_batch"}
     for k in kernels:
         main_path = main_paths.get(k["name"], "c3_decode_stream")
         n = {p: c[k["name"]] for p, (c, _f) in paths.items()}
@@ -1106,7 +1358,8 @@ def main() -> int:
             k.get(s, {}).get("max_abs_err", 0)
             for s in ("c2_decode_batch_shapes", "c4_decode_batch_buckets")])
         # no single PyTorch call computes an HT cleanup pass, SigProp /
-        # MagRef, nor RCT or ICT with DC shift, clip and the narrow pack
+        # MagRef, RCT or ICT with DC shift, clip and the narrow pack, nor
+        # the 32-sample-group bit pack
         k.update(main_path=main_path, launches=n[main_path],
                  launches_per_frame=per_frame[main_path],
                  launches_by_path=n, launches_per_frame_by_path=per_frame,

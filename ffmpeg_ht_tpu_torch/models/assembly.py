@@ -21,7 +21,11 @@ program (counterpart of ``_entropy_stage`` + ``_compiled_assembly`` of
      (ops/mct_cuda), or ``rint`` (float) + DC shift + clip for planes
      without MCT;
   7. one packed uint8 / uint16 buffer (uint16 held as int16 bits) whose
-     last element is the all-lanes ok flag.
+     last element is the all-lanes ok flag; with ``wire_pack`` (9..15-bit
+     samples) that buffer is bit-packed into int32 words holding uint32
+     bits, followed by the flag as one word (ops/wirepack, the kernel
+     ``csrc/wire_pack.cu``), as the reference's ``wire_pack`` option
+     does (assembly.py:436-441, decoder.py:595-601).
 
 ``BucketProgram`` runs the cleanup per bucket of same-shape codeblocks
 (plus SigProp / MagRef, ops/ht_refine, on refined buckets), the same
@@ -31,7 +35,9 @@ flat inverse DWT per plane, and the same tail (steps 6-7, shared in
 
 The assembly plan (``PrecPlan`` .. ``AssemblyPlan``, ``build_plan``) is
 copied verbatim from the reference module: numpy only, static per
-codestream geometry. Samples wider than 16 bits raise NotImplementedError.
+codestream geometry. Samples wider than 16 bits raise NotImplementedError
+here; ``Decoder`` negotiates the pixel format first, which raises the
+reference's PatchWelcome for such streams before a program is built.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ffmpeg_ht_tpu_torch.ops.ht_scan import (decode_cleanup_scan_dims,
                                              decode_cleanup_scan_sig)
 from ffmpeg_ht_tpu_torch.ops.mct_cuda import (dc_shift_clip, ict_writeframe,
                                               narrow, rct_writeframe)
+from ffmpeg_ht_tpu_torch.ops.wirepack import pack_words
 
 
 @dataclass(frozen=True)
@@ -243,14 +250,19 @@ def _compose_plane(ras, plane: PlanePlan, lane_off: int):
 
 class _Program:
     """What the v3 and the v2 programs share: the geometry, the dequant of
-    the mu words and the MCT / DC shift / clip / pack tail."""
+    the mu words and the MCT / DC shift / clip / pack tail (with
+    `wire_pack`, the bit-packed words of 8 < cbps < 16 samples)."""
 
-    def __init__(self, geom_key: Tuple, frames: int, no_istep: bool):
+    def __init__(self, geom_key: Tuple, frames: int, no_istep: bool,
+                 wire_pack: bool = False):
         (planes, borders, ndecs, mct_flags, tci, cbps, total,
          transform) = geom_key
         if cbps > 16:
             raise NotImplementedError(
                 f"{cbps}-bit samples do not fit the uint16 packed output")
+        if wire_pack and not 8 < cbps < 16:
+            raise ValueError(f"wire pack takes 9..15-bit samples, not {cbps}")
+        self.wire_pack = wire_pack
         self.planes, self.borders, self.ndecs = planes, borders, ndecs
         self.mct_flags, self.tci = mct_flags, tci
         self.cbps, self.total, self.transform = cbps, total, transform
@@ -283,7 +295,8 @@ class _Program:
     def pack(self, outs, ok):
         """Stages 6-7: MCT / DC shift / clip into the packed buffer. Plane
         i of frame f starts at f * total + its geometry offset; the ICT of
-        a tile runs for every frame in one call."""
+        a tile runs for every frame in one call. With ``wire_pack`` the
+        buffer, flag included, is packed into words (one launch)."""
         total, F = self.total, self.frames
         packed = torch.empty(F * total + 1, dtype=self.out_dtype,
                              device=ok.device)
@@ -318,6 +331,8 @@ class _Program:
                     put(outs[f * nplanes + i], f * total + self.planes[i][0])
         # ok flag: inert and pad lanes pass trivially
         packed[F * total:].copy_(ok.all().reshape(1))
+        if self.wire_pack:
+            return pack_words(packed, self.cbps)
         return packed
 
 
@@ -326,15 +341,16 @@ class V3Program(_Program):
 
     ``prog(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs, magb,
     istep, scale97, fscale, pf_idx, pf_val) -> packed`` with the argument
-    names and layouts of the JAX program (models/fastpath.finish_v3).
+    names and layouts of the JAX program (models/fastpath.finish_v3);
+    `packed` is bit-packed words with `wire_pack`.
     Arrays carry frames * n_pad lanes, frame-major; pf_idx indexes the
     frames' flat lane rasters and its pads point one past their end.
     """
 
     def __init__(self, plan: AssemblyPlan, geom_key: Tuple, qw: int,
                  qh: int, ms_class: int, n_pad: int, frames: int,
-                 no_istep: bool = False):
-        super().__init__(geom_key, frames, no_istep)
+                 no_istep: bool = False, wire_pack: bool = False):
+        super().__init__(geom_key, frames, no_istep, wire_pack)
         # band-direct inverse DWT when every level of every plane is at
         # least 8x8 (assembly.py:283-286); else the flat fallback
         self.band_direct = all(
@@ -394,7 +410,8 @@ class BucketProgram(_Program):
     """The v2 decode program for one geometry and its buckets (counterpart
     of ``_entropy_stage`` plus ``_compiled_assembly``, decoder.py:426-606).
 
-    ``prog(pf_idx, pf_val, bucket_args) -> packed``; `shapes` holds a
+    ``prog(pf_idx, pf_val, bucket_args) -> packed`` (bit-packed words
+    with `wire_pack`); `shapes` holds a
     ``(qw, qh, w, h, ms_class, refined)`` tuple per bucket and
     `bucket_args` that bucket's lane arrays (models/fastpath.
     finish_buckets, or decoder._bucket_arrays) on the device, ``nreal``
@@ -407,8 +424,9 @@ class BucketProgram(_Program):
     v3 program's MCT / DC shift / clip / pack tail. A batch of F frames
     is one program over the frame-replicated geometry."""
 
-    def __init__(self, shapes, geom_key: Tuple):
-        super().__init__(geom_key, frames=1, no_istep=False)
+    def __init__(self, shapes, geom_key: Tuple, wire_pack: bool = False):
+        super().__init__(geom_key, frames=1, no_istep=False,
+                         wire_pack=wire_pack)
         self.shapes = tuple(shapes)
 
     def __call__(self, pf_idx, pf_val, bucket_args):

@@ -33,12 +33,22 @@ In both v2 routes, codeblocks under ``_HOST_AREA`` samples and those
 with more than 25 magnitude bitplanes decode on the host oracle and
 reach the device as a sparse prefill. ``decode_batch`` runs same-geometry
 frames as one program (either kind); ``bench_resident`` times the
-V3Program only, as in the reference. Not ported: the wire pack and
-sharding ``decode_batch`` over several devices (ROADMAP.md).
+V3Program only, at full resolution, as in the reference.
+
+``wire_pack=True`` bit-packs 9..15-bit output on the device into words
+(ops/wirepack, the kernel ``csrc/wire_pack.cu``) on both programs, and
+the host unpacks it; off by default, as in the reference. The pixel
+format is negotiated before a program is built, so a stream that no
+format fits raises the reference's PatchWelcome on every route.
+``FFMPEG_HT_TPU_V3=0`` turns the V3Program off in ``decode*`` (the
+reference's switch), so fast-profile streams take the BucketProgram.
+``decode_frame_cuda`` is the one-shot wrapper. Not ported: sharding
+``decode_batch`` over several devices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
@@ -58,6 +68,7 @@ from ffmpeg_ht_tpu_torch.models.assembly import BucketProgram, V3Program
 from ffmpeg_ht_tpu_torch.models.fastpath import (_Geometry, finish_v3_numpy,
                                                  to_torch)
 from ffmpeg_ht_tpu_torch.models.host_decoder import DecodedFrame
+from ffmpeg_ht_tpu_torch.ops.wirepack import unpack_words
 from ffmpeg_ht_tpu_torch.utils.device import resolve_device
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
@@ -408,19 +419,42 @@ class Decoder:
     codestream's transform, which the geometry cache key holds.
     `reduction_factor` decodes at 1 / 2**r resolution (``-lowres``) and
     `max_layers` keeps the first quality layers only (0: all), as the
-    reference's options do.
+    reference's options do. `wire_pack` bit-packs 9..15-bit output on the
+    device so that the fetch moves depth/16 of the uint16 bytes, at the
+    cost of an unpack on the host (decoder.py:616-642); off by default,
+    as in the reference: a card on the host's PCIe fetches fast enough
+    that the unpack only adds host work.
     """
 
     def __init__(self, device="cuda", bitexact: bool = True,
-                 reduction_factor: int = 0, max_layers: int = 0):
+                 reduction_factor: int = 0, max_layers: int = 0,
+                 wire_pack: bool = False):
         self.device = resolve_device(device)
         self.bitexact = bitexact
         self.reduction_factor = reduction_factor
         self.max_layers = max_layers
+        self.wire_pack = wire_pack
         self._geoms = {}        # geometry fingerprint -> FlatGeometry
         self.v3_frames = 0      # frames decoded by the V3Program
         self.v2_frames = 0      # frames decoded by the BucketProgram
         self.host_frames = 0    # frames routed to the host oracle
+
+    def _wp(self, cbps: int) -> bool:
+        return self.wire_pack and 8 < cbps < 16
+
+    @staticmethod
+    def _v3_enabled() -> bool:
+        """The reference's switch: FFMPEG_HT_TPU_V3=0 sends fast-profile
+        streams to the BucketProgram (decoder.py:1078)."""
+        return os.environ.get("FFMPEG_HT_TPU_V3", "1") != "0"
+
+    @staticmethod
+    def _negotiate(hdrs):
+        """write_frame's pixel-format negotiation, before a device program
+        is built: raises the reference's PatchWelcome for a stream that
+        no format fits (more than 16 bits, ...)."""
+        for hdr in hdrs:
+            pf.negotiate(hdr.siz, hdr.colour_space, hdr.siz.rsiz)
 
     def _parse(self, data: bytes):
         return parse_codestream(data, bitexact=self.bitexact,
@@ -504,6 +538,7 @@ class Decoder:
         if not all(_supported_on_device(h, t) for h, t, _ in parsed):
             return [self.decode(d) for _, _, d in parsed]
 
+        self._negotiate(hdrs)
         geoms, bucket_maps, prefills = [], [], []
         for hdr, tiles, _ in parsed:
             g, b, p = _build_batch(hdr, tiles)
@@ -555,8 +590,9 @@ class Decoder:
         cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs]
         if any(c is None for c in cols_list):
             return None
+        self._negotiate(hdrs)
         F = len(hdrs)
-        v3 = self._v3_program(fg, cols_list)
+        v3 = self._v3_program(fg, cols_list) if self._v3_enabled() else None
         if v3 is not None:
             prog, args = v3
             packed = prog(**args)
@@ -573,22 +609,24 @@ class Decoder:
         """Device-resident decode rate for same-geometry streams
         (decoder.py:985-1052).
 
-        Stages the frames' lane arrays on the device once, builds ONE
-        V3Program over all F frames, then runs `reps` x `n_it` programs
-        back to back, synchronising once per repetition: the rate the
-        device sustains without the host parse and the output fetch.
-        Returns {"fps", "ms_per_frame", "frames_merged"} for the best
-        repetition; raises ValueError when the streams leave the fused
-        fast lane (the v2 path has no resident form, as in the
+        Parses at full resolution whatever `reduction_factor` says, stages
+        the frames' lane arrays on the device once, builds ONE V3Program
+        over all F frames (no wire pack), then runs `reps` x `n_it`
+        programs back to back, synchronising once per repetition: the
+        rate the device sustains without the host parse and the output
+        fetch. Returns {"fps", "ms_per_frame", "frames_merged"} for the
+        best repetition; raises ValueError when the streams leave the
+        fused fast lane (the v2 path has no resident form, as in the
         reference)."""
-        hdrs = [self._parse(s) for s in streams]
+        hdrs = [parse_codestream(s, bitexact=self.bitexact) for s in streams]
         fg = self._batch_geom(hdrs)
         cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs] if fg \
             else [None]
         if any(c is None for c in cols_list):
             raise ValueError("streams not v3-capable (fast profile, one "
                              "shared geometry, native parse)")
-        v3 = self._v3_program(fg, cols_list)
+        self._negotiate(hdrs)
+        v3 = self._v3_program(fg, cols_list, wire_pack=False)
         if v3 is None:
             raise ValueError("streams not v3-capable (assembly plan, no "
                              "refinement lanes, maxbp <= 25)")
@@ -619,7 +657,8 @@ class Decoder:
         cols = FP.parse_frame_flat(hdr, fg)
         if cols is None:
             return None
-        v3 = self._v3_program(fg, [cols])
+        self._negotiate([hdr])
+        v3 = self._v3_program(fg, [cols]) if self._v3_enabled() else None
         if v3 is not None:
             prog, args = v3
             self.v3_frames += 1
@@ -643,10 +682,12 @@ class Decoder:
         return (_replicate_geometry(fg.geom, F),
                 FP.finish_buckets(accum, F * total), accum)
 
-    def _v3_program(self, fg, cols_list):
+    def _v3_program(self, fg, cols_list, wire_pack=None):
         """(the cached V3Program for these frames, its arguments on the
         device), or None when they need the v2 path: no assembly plan, no
-        codeblocks, refinement lanes or a lane with maxbp > 25."""
+        codeblocks, refinement lanes or a lane with maxbp > 25. The
+        program packs its output into words when `wire_pack` (default:
+        the decoder's choice for this depth) is true."""
         if fg.v3_plan is None:
             fg.v3_plan = ASM.build_plan(fg) or False
         if fg.v3_plan is False or fg.ncblks == 0:
@@ -668,13 +709,14 @@ class Decoder:
         args, F = finish_v3_numpy(fg, frames, fg.geom.total)
         # lossless frames: istep is uniformly the identity 32768
         no_istep = bool(np.all(args["istep"] == 32768))
-        key = (F, ms_class, no_istep)
+        wp = self._wp(fg.geom.cbps) if wire_pack is None else wire_pack
+        key = (F, ms_class, no_istep, wp)
         prog = fg.v3_progs.get(key)
         if prog is None:
             prog = V3Program(fg.v3_plan, fg.geom.key(),
                              qw=fg.v3_plan.bw // 2, qh=fg.v3_plan.bh // 2,
                              ms_class=ms_class, n_pad=fg.ncblks, frames=F,
-                             no_istep=no_istep)
+                             no_istep=no_istep, wire_pack=wp)
             fg.v3_progs[key] = prog
         return prog, {k: to_torch(v, self.device) for k, v in args.items()}
 
@@ -709,13 +751,15 @@ class Decoder:
         entropy + assembly (decoder.py:972-981)."""
         up = lambda v: to_torch(v, self.device) \
             if isinstance(v, np.ndarray) else v
-        prog = BucketProgram(shapes, geom.key())
+        prog = BucketProgram(shapes, geom.key(),
+                             wire_pack=self._wp(geom.cbps))
         return prog(up(pf_idx), up(pf_val),
                     [{k: up(v) for k, v in a.items()} for a in bucket_args])
 
     def _launch(self, hdr, tiles):
         """Object path: bucket the codeblocks, upload, dispatch; no host
         sync. Returns (geom, packed output on the device)."""
+        self._negotiate([hdr])
         geom, buckets, prefill = _build_batch(hdr, tiles)
         return geom, self._dispatch(geom, buckets, prefill)
 
@@ -747,10 +791,17 @@ class Decoder:
 
     def _split_frames(self, frames, geom, packed) -> List[DecodedFrame]:
         """The packed output of len(frames) (hdr, tiles) frames of one
-        geometry -> DecodedFrames; raises InvalidData when the ok flag is
-        clear."""
+        geometry -> DecodedFrames (a wire-packed output is unpacked
+        first, decoder.py:632-642); raises InvalidData when the ok flag
+        is clear."""
         buf = packed.numpy()
-        if buf.dtype == np.int16:
+        if buf.dtype == np.int32:            # wire words, uint32 bits
+            words = buf.view(np.uint32)
+            n = len(frames) * geom.total
+            buf = np.empty(n + 1, np.uint16)
+            unpack_words(words[:-1], geom.cbps, n, out=buf)
+            buf[-1] = np.uint16(words[-1])
+        elif buf.dtype == np.int16:
             buf = buf.view(np.uint16)
         if buf[-1] == 0:
             raise InvalidData("invalid HT codestream (U bound violated)")
@@ -808,3 +859,11 @@ def _write_frame_prescaled(hdr, tile, comp_planes, fmt, planes, precision,
             nc = fmt.nb_components
             planes[0][y0:h, x0 * nc + compno:w * nc:nc] = vals[:, :w - x0]
 
+
+def decode_frame_cuda(data: bytes, bitexact: bool = True,
+                      reduction_factor: int = 0,
+                      device="cuda") -> DecodedFrame:
+    """One-shot convenience wrapper around Decoder (the counterpart of
+    the reference's ``decode_frame_tpu``)."""
+    return Decoder(device=device, bitexact=bitexact,
+                   reduction_factor=reduction_factor).decode(data)

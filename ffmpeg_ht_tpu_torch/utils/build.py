@@ -58,6 +58,8 @@ _SIGNATURES = {
                               _P, _P, _P,                # pLSB, has_mr, words
                               _I, _I, _I, _I, _I,        # N, qw, qh, w, h
                               _P, _P],                   # out, stream
+    "wire_pack_launch": [_P, _I64, _I, _P, _P],          # in, n, depth,
+                                                         # out, stream
 }
 
 

@@ -20,14 +20,17 @@ on random lanes (any sample words, quad patterns, refinement words, pLSB,
 flags; a ragged last warp; flags alternating lane by lane; every raster
 from 8x8 to 64x64; lanes where every sigma-0 sample becomes significant,
 so that each block's 32-bit window fills) and on encoded codeblocks, where
-both also equal the scalar oracle.
+both also equal the scalar oracle. The wire pack kernel matches
+``pack_words_ref`` word for word at every depth 9..15 on ragged sample
+counts, on all-ones and all-zeros samples, from an unaligned start, and
+writes the ok flag word after the words.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_magref_stream,
                                               prepare_sigprop_stream,
@@ -461,3 +464,52 @@ def test_refine_kernel_rejects_bad_args(cuda):
     with pytest.raises(ValueError):                  # words of another shape
         ht_refine.ht_magref_pass(args[0], args[1], args[3], args[4], b,
                                  words[:, :, :1], qw, qh, 16, 16)
+
+
+@pytest.mark.parametrize("depth", range(9, 16))
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 100003])
+def test_wire_pack_kernel_matches_ref(cuda, depth, n):
+    rng = np.random.default_rng(depth * 7 + n)
+    src = rng.integers(0, 1 << depth, n + 1, dtype=np.uint16)
+    src[-1] = n % 2                                      # the ok flag
+    flat = torch.from_numpy(src.view(np.int16)).to(cuda)
+    before = wirepack.pack_words.launches
+    got = wirepack.pack_words(flat, depth)
+    torch.cuda.synchronize()
+    assert wirepack.pack_words.launches == before + 1
+    want = wirepack.pack_words_ref(flat[:n].cpu(), depth)
+    assert got.shape == (wirepack.packed_words_len(n, depth) + 1,)
+    assert torch.equal(got[:-1].cpu(), want) and int(got[-1]) == n % 2
+    back = wirepack.unpack_words(want.numpy().view(np.uint32), depth, n)
+    assert np.array_equal(back, src[:n])
+
+
+@pytest.mark.parametrize("depth", range(9, 16))
+def test_wire_pack_kernel_extremes(cuda, depth):
+    """All-ones and all-zeros samples, and an unaligned start (the scalar
+    load path), ragged n."""
+    n = 32 * 77 + 5
+    for fill in ((1 << depth) - 1, 0):
+        flat = torch.full((n + 1,), fill, dtype=torch.int16, device=cuda)
+        flat[-1] = 1
+        got = wirepack.pack_words(flat, depth).cpu()
+        want = wirepack.pack_words_ref(flat[:n].cpu(), depth)
+        assert torch.equal(got[:-1], want) and int(got[-1]) == 1
+    rng = np.random.default_rng(depth)
+    buf = torch.from_numpy(rng.integers(0, 1 << depth, n + 4, dtype=np.uint16)
+                           .view(np.int16)).to(cuda)
+    for off in (1, 3):
+        got = wirepack.pack_words(buf[off:off + n + 1], depth).cpu()
+        assert torch.equal(got[:-1], wirepack.pack_words_ref(
+            buf[off:off + n].cpu(), depth))
+        assert int(got[-1]) == int(buf[off + n])
+
+
+def test_wire_pack_kernel_rejects_bad_args(cuda):
+    flat = torch.zeros(64, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        wirepack.pack_words(flat, 16)
+    with pytest.raises(TypeError):
+        wirepack.pack_words(flat.to(torch.int32), 10)
+    with pytest.raises(ValueError):
+        wirepack.pack_words(flat.view(8, 8), 10)
