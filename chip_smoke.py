@@ -78,8 +78,12 @@ exits non-zero:
      read after each: one wire_pack launch a batch, one a frame), every
      frame equal to its source, and ``wire_pack=False`` giving the same
      bytes; the wire_pack kernel against ``pack_words_ref`` on the
-     batch's own int16 output (time, bound, share); fetch and unpack ms
-     with and without the pack, ``decode_batch`` ms/frame both ways,
+     batch's own int16 output, and on runs of its samples at the sizes
+     of one c5 frame and of the c4 batch, timed on consecutive runs in
+     turn so that L2 holds no input between launches (time, bound,
+     share at each, beside a ``copy_`` of the same input as a yardstick
+     of the card's streaming rate; its ptxas registers and shared
+     memory); fetch and unpack ms with and without the pack, ``decode_batch`` ms/frame both ways,
      ``bench_resident`` ms/frame at F=4; the CLI's ``decode -f framemd5
      --benchmark --device cuda`` on the MXF, whose framemd5 must equal
      that of the source frames (its ``bench:`` lines printed).
@@ -93,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -154,6 +159,9 @@ ONE_THREAD_CLEANUP_MS = 2.46
 # lane 0, on the six refined buckets of the c4 decode_batch [A, B, A, B]
 # program, summed; H100 80GB HBM3 at 700 W (PERF.md, section 6)
 ONE_WARP_REFINE_MS = 1.0664
+# the earlier wire pack kernel, one thread per 32-sample group, on the c5
+# batch; H100 80GB HBM3 at 700 W (PERF.md, section 6)
+ONE_THREAD_WIRE_PACK_MS = 0.3641
 
 
 def _natural(rng, h, w, maxval=1023, dtype=np.uint16):
@@ -1017,8 +1025,7 @@ def _phase7(dev):
           f"float oracle (max abs diff, samples off) {diffs[1]}; VSC (object "
           f"path) == source; {', '.join(opts)} == host oracle")
 
-    pair = dict(ref["pair"], earlier_ms=ONE_WARP_REFINE_MS,
-                ms_per_frame=ref["pair"]["ms"] / len(batch_in))
+    pair = dict(ref["pair"], ms_per_frame=ref["pair"]["ms"] / len(batch_in))
     entries = [dict(name=name, route="cuda",
                     source="ffmpeg_ht_tpu_torch/csrc/ht_refine.cu",
                     replaces="ffmpeg_ht_tpu/ops/ht_refine.py:58",
@@ -1104,27 +1111,56 @@ def _phase8(dev, natural_src, natural_stream):
           f"{batch_counts} and {stream_counts}; decode_batch with "
           f"wire_pack=False gives the same bytes (launches {plain_counts})")
 
-    # the kernel against its plain version on the batch's own int16 output
+    # the kernel against its plain version on the batch's own int16 output,
+    # then on runs of its samples at the sizes of one c5 frame (the
+    # decode_stream launch) and of the c4 batch with the pack (phase 7).
+    # A smaller size is timed on the batch's consecutive runs in turn, so
+    # that no launch reads an input the one before left in the 50 MB L2
     packed16, n, _cbps = _batch_output(plain_dec, streams)
-    words = wirepack.pack_words(packed16, DEPTH)
-    ref, plain_ms = _plain(wirepack.pack_words_ref, packed16[:n], DEPTH)
-    err = max(int((words[:-1].to(torch.int64) - ref.to(torch.int64)).abs()
-                  .max()), abs(int(words[-1]) - int(packed16[-1])))
-    if err or int(packed16[-1]) != 1:
-        raise RuntimeError(f"wire_pack differs from pack_words_ref (max abs "
-                           f"err {err}) or the ok flag is clear")
-    ms = _cuda_ms(lambda: wirepack.pack_words(packed16, DEPTH), 20, True)
-    bound = _bound(packed16.numel() * 2 + words.numel() * 4)
+    if int(packed16[-1]) != 1:
+        raise RuntimeError("c5 decode_batch: the ok flag is clear")
+    sizes = {}
+    for size, k in (("c5 batch", n), ("one c5 frame", n // F),
+                    ("c4 batch", 4 * C4_W * C4_H)):
+        # run j: k samples, then the next one as the flag
+        runs = [packed16[j * k:(j + 1) * k + 1] for j in range(n // k)]
+        buf = runs[0]
+        words = wirepack.pack_words(buf, DEPTH)
+        ref, plain_ms = _plain(wirepack.pack_words_ref, buf[:k], DEPTH)
+        err = max(int((words[:-1].to(torch.int64) - ref.to(torch.int64))
+                      .abs().max()), abs(int(words[-1]) - int(buf[-1])))
+        if err:
+            raise RuntimeError(f"wire_pack differs from pack_words_ref at "
+                               f"the {size} size (max abs err {err})")
+        turn = itertools.cycle(runs)
+        ms = _cuda_ms(lambda: wirepack.pack_words(next(turn), DEPTH), 20,
+                      True)
+        nbytes = buf.numel() * 2 + words.numel() * 4
+        bound = _bound(nbytes)
+        # the card's streaming rate on this many bytes: a copy of the
+        # input (a yardstick, not a call that computes the pack)
+        dup = torch.empty_like(buf)
+        copy_ms = _cuda_ms(lambda: dup.copy_(next(turn)), 20, True)
+        sizes[f"n_{k}"] = dict(samples=k, input_runs=len(runs),
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound, input_copy_ms=copy_ms)
+        print(f"phase 8   wire_pack == pack_words_ref (+ flag word) at the "
+              f"{size} size, {k} samples ({buf.numel() * 2 / 1e6:.1f} MB "
+              f"in, {words.numel() * 4 / 1e6:.1f} MB out): kernel {ms:.4f} "
+              f"ms ({nbytes / ms / 1e9:.2f} TB/s, {len(runs)} input runs "
+              f"in turn), plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+              f"(bytes), {100 * bound / ms:.1f}% of bound; a copy_ of the "
+              f"input {copy_ms:.4f} ms "
+              f"({2 * buf.numel() * 2 / copy_ms / 1e9:.2f} TB/s)")
+        del words, ref, dup, runs, turn
+    del packed16, buf
     regs = {k: v for k, v in _ptxas(build.load().log,
                                     ("wire_pack_kernel",)).items()
             if k.endswith(f"<{DEPTH}>")}
-    print(f"phase 8   wire_pack == pack_words_ref (+ flag word) on the "
-          f"batch's {n} samples ({packed16.numel() * 2 / 1e6:.1f} MB in, "
-          f"{words.numel() * 4 / 1e6:.1f} MB out): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.1f} ms, bound {bound:.4f} ms (bytes), "
-          f"{100 * bound / ms:.1f}% of bound; ptxas: "
+    print(f"phase 8   wire_pack c5 batch {sizes[f'n_{n}']['ms']:.4f}"
+          f" ms vs {ONE_THREAD_WIRE_PACK_MS} ms for the earlier "
+          "one-thread-per-group kernel; ptxas: "
           + "; ".join(f"{k}: {v}" for k, v in regs.items()))
-    del packed16, words, ref
 
     fu = {"plain": _fetch_unpack(plain_dec, streams),
           "wire_pack": _fetch_unpack(dec, streams)}
@@ -1167,11 +1203,13 @@ def _phase8(dev, natural_src, natural_stream):
           f"--benchmark --device cuda: framemd5 == the sources' ({F} "
           f"frames); " + " | ".join(bench))
 
+    # the entry's numbers are the c5 batch's; its error covers every size
+    err = max(v["max_abs_err"] for v in sizes.values())
+    c5 = dict(sizes.pop(f"n_{n}"), max_abs_err=err)
     entry = dict(name="wire_pack", route="cuda",
                  source="ffmpeg_ht_tpu_torch/csrc/wire_pack.cu",
                  replaces="ffmpeg_ht_tpu/ops/wirepack.py:33",
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                 ptxas=regs, samples=n, fetch_unpack=fu,
+                 **c5, ptxas=regs, other_sizes=sizes, fetch_unpack=fu,
                  decode_batch_ms_per_frame=times,
                  bench_resident_ms_per_frame=res["ms_per_frame"])
     paths = {"c5_decode_batch": (batch_counts, F),

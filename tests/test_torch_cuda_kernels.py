@@ -23,7 +23,11 @@ so that each block's 32-bit window fills) and on encoded codeblocks, where
 both also equal the scalar oracle. The wire pack kernel matches
 ``pack_words_ref`` word for word at every depth 9..15 on ragged sample
 counts, on all-ones and all-zeros samples, from an unaligned start, and
-writes the ok flag word after the words.
+writes the ok flag word after the words; at the edges of its 8192-sample
+tile (one short, one tile, one more, several tiles and a ragged tail),
+at n = 0 (the flag word alone), on a grid of more tiles than the card
+holds at once, and from every start offset of 1-7 samples (the scalar
+path).
 """
 
 import numpy as np
@@ -466,8 +470,15 @@ def test_refine_kernel_rejects_bad_args(cuda):
                                  words[:, :, :1], qw, qh, 16, 16)
 
 
+WIRE_TILE = 256 * 32        # samples a block of the kernel packs (16 KB)
+
+
 @pytest.mark.parametrize("depth", range(9, 16))
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 100003])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 100003,
+                               # the flag word alone; a tile's edges; a
+                               # ragged tail, and a tile of whole groups
+                               0, WIRE_TILE - 1, WIRE_TILE, WIRE_TILE + 1,
+                               5 * WIRE_TILE + 77, 7 * WIRE_TILE + 8160])
 def test_wire_pack_kernel_matches_ref(cuda, depth, n):
     rng = np.random.default_rng(depth * 7 + n)
     src = rng.integers(0, 1 << depth, n + 1, dtype=np.uint16)
@@ -503,6 +514,44 @@ def test_wire_pack_kernel_extremes(cuda, depth):
         assert torch.equal(got[:-1], wirepack.pack_words_ref(
             buf[off:off + n].cpu(), depth))
         assert int(got[-1]) == int(buf[off + n])
+
+
+def _wire_pack_check(flat, depth):
+    """One launch of the kernel on `flat` (samples, then the flag) against
+    ``pack_words_ref`` on the card, and its flag word."""
+    n = flat.numel() - 1
+    before = wirepack.pack_words.launches
+    got = wirepack.pack_words(flat, depth)
+    torch.cuda.synchronize()
+    assert wirepack.pack_words.launches == before + 1
+    assert got.shape == (wirepack.packed_words_len(n, depth) + 1,)
+    assert torch.equal(got[:-1], wirepack.pack_words_ref(flat[:n], depth))
+    assert int(got[-1]) == int(flat[n]) & 0xFFFF
+
+
+@pytest.mark.parametrize("depth", range(9, 16))
+def test_wire_pack_kernel_many_waves(cuda, depth):
+    """More tiles than 132 SMs x 8 blocks hold at once, plus a ragged
+    tail."""
+    n = 132 * 8 * WIRE_TILE + 3 * WIRE_TILE + 45
+    g = torch.Generator(device=cuda).manual_seed(depth)
+    flat = torch.randint(0, 1 << depth, (n + 1,), generator=g,
+                         dtype=torch.int16, device=cuda)
+    flat[-1] = 1
+    _wire_pack_check(flat, depth)
+
+
+@pytest.mark.parametrize("depth", range(9, 16))
+@pytest.mark.parametrize("off", range(1, 8))
+def test_wire_pack_kernel_offsets(cuda, depth, off):
+    """A slice at every sample offset that leaves the start unaligned to
+    16 bytes: every tile takes the scalar path."""
+    n = 3 * WIRE_TILE + 100
+    rng = np.random.default_rng(depth * 8 + off)
+    buf = torch.from_numpy(rng.integers(0, 1 << depth, n + 8,
+                                        dtype=np.uint16).view(np.int16))
+    buf = buf.to(cuda)
+    _wire_pack_check(buf[off:off + n + 1], depth)
 
 
 def test_wire_pack_kernel_rejects_bad_args(cuda):

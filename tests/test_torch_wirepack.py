@@ -26,8 +26,15 @@ from ffmpeg_ht_tpu_torch.ops import wirepack as wp
 ENC = dict(nreslevels=3, log2_cblk_width=5, log2_cblk_height=5)
 
 
-@pytest.mark.parametrize("depth", range(9, 16))
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000])
+# every depth at small ragged n; three depths across the CUDA kernel's
+# tile of 256 groups (8192 samples), whose edges the card tests probe
+# against this plain version
+_REF_CASES = [(n, d) for n in (1, 31, 32, 33, 1000) for d in range(9, 16)] \
+    + [(n, d) for n in (8191, 8192, 8193) for d in (9, 10, 15)]
+
+
+@pytest.mark.parametrize("n,depth", _REF_CASES,
+                         ids=[f"{n}-{d}" for n, d in _REF_CASES])
 def test_pack_words_ref_matches_jax(depth, n):
     rng = np.random.default_rng(depth * 1000 + n)
     src = rng.integers(0, 1 << depth, (n,), dtype=np.uint16)
