@@ -86,7 +86,20 @@ exits non-zero:
      memory); fetch and unpack ms with and without the pack, ``decode_batch`` ms/frame both ways,
      ``bench_resident`` ms/frame at F=4; the CLI's ``decode -f framemd5
      --benchmark --device cuda`` on the MXF, whose framemd5 must equal
-     that of the source frames (its ``bench:`` lines printed).
+     that of the source frames (its ``bench:`` lines printed);
+  9. ``decode_batch(devices=...)``: phase 8's four streams sharded over
+     the card listed 2 and 3 times (F = 4 over D = 3: two pad frames),
+     with and without the pack, ``require_shard=True`` (counts reset
+     before and read after each: the cleanup pair and the pack once a
+     shard, RCT once a frame of each shard, pads included), every frame
+     byte-equal to phase 8's single program and to its source, ms per
+     frame beside phase 8's single-device median (one card: no scaling);
+     the cleanup kernels and RCT against their plain versions on shard
+     0's own program and lanes (``Decoder._shard_plan`` /
+     ``_v3_shard``); phase 7's refined c4 streams raise
+     ``UnshardableBatch`` with ``require_shard``, and without it log
+     "cannot shard" and decode equal to their sources; the bench's c5 row
+     (``ffmpeg_ht_tpu_torch.bench.c5_row``) on phase 8's streams.
 
 The last lines are the card's name and power limit, a JSON object with
 the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
@@ -99,6 +112,7 @@ import contextlib
 import io
 import itertools
 import json
+import logging
 import os
 import re
 import statistics
@@ -114,7 +128,7 @@ os.environ["CUDA_VISIBLE_DEVICES"] = \
 import numpy as np
 import torch
 
-from ffmpeg_ht_tpu_torch import cli
+from ffmpeg_ht_tpu_torch import bench, cli
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu_torch.containers import mux
 from ffmpeg_ht_tpu_torch.containers.mxf import demux_mxf, mux_mxf
@@ -128,6 +142,7 @@ from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
 from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.utils import build, native
+from ffmpeg_ht_tpu_torch.utils.errors import UnshardableBatch
 
 W, H, DEPTH = 4096, 2160, 10
 ENC = dict(depth=DEPTH, tile_width=4096, tile_height=4096,
@@ -380,6 +395,40 @@ def _cleanup_check(args, segments, qw, qh, msc):
                       *lane_args, qw, qh, msc), 10, True),
                   bound_ms=_bound(ms_bytes + melvlc_bytes + 32 * N + 8192
                                   + out_bytes)))
+
+
+def _rct_check(planes):
+    """The RCT kernel against its plain version (+ the int16 pack) on one
+    frame's three (H, W) int32 planes after the inverse DWT, on the card.
+    Raises on any difference. Returns the max abs error, the kernel's ms
+    by CUDA events, the plain version's, the bound from the bytes moved,
+    and the chroma plane's (min, max)."""
+    y0, y1, y2 = (c.contiguous() for c in planes)
+    npx = y0.numel()
+    ref = mct_cuda.rct_writeframe_ref(y0, y1, y2, DEPTH)
+    got = mct_cuda.rct_writeframe(y0, y1, y2, DEPTH)
+    err = max(int((a - b).abs().max()) for a, b in zip(got, ref))
+    packed_k = torch.empty(3 * npx, dtype=torch.int16, device=y0.device)
+    packed_r = torch.empty_like(packed_k)
+    mct_cuda.rct_writeframe(y0, y1, y2, DEPTH, out=packed_k)
+
+    def plain():
+        for i, c in enumerate(mct_cuda.rct_writeframe_ref(y0, y1, y2, DEPTH)):
+            packed_r[i * npx:(i + 1) * npx] = \
+                mct_cuda.narrow(c, torch.int16).reshape(-1)
+
+    plain()
+    err = max(err, int((packed_k.to(torch.int32)
+                        - packed_r.to(torch.int32)).abs().max()))
+    if err:
+        raise RuntimeError(f"RCT kernel differs from its plain version "
+                           f"(max abs err {err})")
+    return dict(max_abs_err=err,
+                ms=_cuda_ms(lambda: mct_cuda.rct_writeframe(
+                    y0, y1, y2, DEPTH, out=packed_k), 20, True),
+                plain_ms=_cuda_ms(plain, 20),
+                bound_ms=_bound(3 * npx * 4 + packed_k.numel() * 2),
+                chroma=(int(y1.min()), int(y1.max())))
 
 
 def _print_cleanup(phase, c):
@@ -1040,7 +1089,7 @@ def _phase7(dev):
     paths = {"c4_decode_stream": (stream_counts, 2),
              "c4_decode_batch": (batch_counts, 4),
              "c4_decode_batch_wire_pack": (wp_counts, 4)}
-    return entries, clean, paths
+    return entries, clean, paths, (srcs, [A, B])
 
 
 def _phase8(dev, natural_src, natural_stream):
@@ -1049,7 +1098,9 @@ def _phase8(dev, natural_src, natural_stream):
     ``decode_batch`` (one F=4 program) and ``decode_stream``, then by the
     CLI; the wire pack kernel against its plain version on that batch's
     own output. Returns (the kernels line's wire_pack entry without its
-    launches, {path: (launch counts, frames)})."""
+    launches, {path: (launch counts, frames)}, (the sources, the demuxed
+    streams, the frames of the one-program ``decode_batch`` with the
+    pack))."""
     t0 = time.perf_counter()
     plane = natural_src[:, :, 0]
     srcs = [natural_src] + [_rgb(np.roll(plane, k, 1)) for k in C5_ROLLS]
@@ -1214,7 +1265,123 @@ def _phase8(dev, natural_src, natural_stream):
                  bench_resident_ms_per_frame=res["ms_per_frame"])
     paths = {"c5_decode_batch": (batch_counts, F),
              "c5_decode_stream": (stream_counts, F)}
-    return entry, paths
+    return entry, paths, (srcs, streams, frames)
+
+
+class _Keep(logging.Handler):
+    """A logging handler that keeps the messages it is given."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _phase9(dev, c5_data, c4_data, single_ms):
+    """``decode_batch(devices=...)``: phase 8's four c5 streams sharded over
+    the card listed 2 and 3 times (F = 4 over D = 3 pads two frames), with
+    and without the pack; the cleanup kernels and RCT against their plain
+    versions on one shard's own program and lanes; phase 7's refined c4
+    streams, which cannot shard; and the bench's c5 row on phase 8's
+    streams. Returns (the shard's kernel checks, {path: (launch counts,
+    frames)})."""
+    srcs, streams, single = c5_data
+    F, want = len(streams), [fr.tobytes() for fr in single]
+    med = {k: statistics.median(v) for k, v in single_ms.items()}
+    paths = {}
+    for D in (2, 3):
+        devices = [dev] * D
+        Fl = -(-F // D)
+        for wp in (False, True):
+            dec = Decoder(device=dev, bitexact=True, wire_pack=wp)
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = dec.decode_batch(streams, devices=devices,
+                                      require_shard=True)
+            ms = (time.perf_counter() - t0) * 1e3 / F
+            counts = _counts()
+            if [fr.tobytes() for fr in frames] != want or not all(
+                    _same(fr, src, DEPTH) for fr, src in zip(frames, srcs)):
+                raise RuntimeError(f"c5 over {D} shards (wire_pack={wp}): a "
+                                   "frame differs from phase 8's or its "
+                                   "source")
+            # per shard: the cleanup pair once, RCT once a frame of its Fl
+            # (pads included), the pack once
+            expect = {"ht_vlc_pass": D, "ht_magsgn_pass": D,
+                      "rct_writeframe": D * Fl, "ict_writeframe": 0,
+                      **dict.fromkeys(_REFINE, 0), "wire_pack": D if wp else 0}
+            if counts != expect or dec.v3_frames != F or dec.v2_frames \
+                    or dec.host_frames:
+                raise RuntimeError(f"c5 over {D} shards (wire_pack={wp}): "
+                                   f"launches {counts}, expected {expect}; "
+                                   f"v3 frames {dec.v3_frames}")
+            key = "wire_pack" if wp else "plain"
+            paths[f"c5_sharded_d{D}_{key}"] = (counts, F)
+            print(f"phase 9 decode_batch(devices=[{dev}] * {D}, "
+                  f"require_shard=True, wire_pack={wp}): {F} frames == "
+                  f"phase 8's single program, byte for byte, and == source; "
+                  f"{D} shards of {Fl} frames ({D * Fl - F} pad), launches "
+                  f"{counts}; {ms:.1f} ms/frame against {med[key]:.1f} "
+                  "single-device (phase 8 median). One card listed D times: "
+                  "no scaling can be read here")
+
+    # the kernels on shard 0's own program and lanes
+    dec = Decoder(device=dev)
+    plan, why = dec._shard_plan(streams, 2)
+    if plan is None:
+        raise RuntimeError(f"c5 batch cannot shard: {why}")
+    _hdrs, fg, frames, Fl, msc = plan
+    prog, args = dec._v3_shard(fg, frames[:Fl], msc, dev)
+    clean = _cleanup_check(args, _v3_segments(frames[:Fl]), prog.qw, prog.qh,
+                           msc)
+    ln = clean["lanes"]
+    print(f"phase 9 shard 0 of 2: its V3Program (F={prog.frames}, ms_class "
+          f"{msc}) on {ln['N']} lanes (W ms/mel/vlc = "
+          f"{'/'.join(map(str, ln['W']))})")
+    _print_cleanup("phase 9", clean)
+    outs, _ok = prog.decode_planes(**args)
+    clean["rct"] = _rct_check(outs[:3])
+    r = clean["rct"]
+    print(f"phase 9   rct kernel == rct_writeframe_ref + pack on shard 0's "
+          f"first frame: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
+          f"ms, bound {r['bound_ms']:.4f} ms (bytes), "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    del outs, args
+
+    # phase 7's refined streams: no v3 frame, so no shard
+    c4_srcs, c4_streams = c4_data
+    dec = Decoder(device=dev)
+    try:
+        dec.decode_batch(c4_streams, devices=[dev] * 2, require_shard=True)
+    except UnshardableBatch as e:
+        reason = str(e)
+    else:
+        raise RuntimeError("c4 refined streams: decode_batch sharded them")
+    keep = _Keep()
+    log = logging.getLogger("ffmpeg_ht_tpu_torch")
+    log.addHandler(keep)
+    try:
+        frames = dec.decode_batch(c4_streams, devices=[dev] * 2)
+    finally:
+        log.removeHandler(keep)
+    if not any("cannot shard" in m for m in keep.messages) or not all(
+            _same(fr, src, 10) for fr, src in zip(frames, c4_srcs)) \
+            or dec.v2_frames != len(c4_streams):
+        raise RuntimeError(f"c4 without require_shard: {keep.messages}, v2 "
+                           f"frames {dec.v2_frames}, or a frame differs")
+    print(f"phase 9 c4 refined streams with require_shard=True: "
+          f"UnshardableBatch({reason!r}); without it: logged \"cannot "
+          f"shard\", {len(frames)} frames == source on one device (v2)")
+
+    # the bench's c5 row on phase 8's streams
+    t0 = time.perf_counter()
+    row = bench.c5_row(Decoder(device=dev), dev, inputs=(srcs, streams))
+    print(f"phase 9 bench.c5_row on phase 8's streams "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(row)}")
+    return clean, paths
 
 
 def main() -> int:
@@ -1276,37 +1443,16 @@ def main() -> int:
                      n_pad=fg.ncblks, frames=1,
                      no_istep=bool(np.all(args_np["istep"] == 32768)))
     outs, _ok = prog.decode_planes(**args)
-    y0, y1, y2 = (c.contiguous() for c in outs[:3])
-    npx = y0.numel()
-    ref = mct_cuda.rct_writeframe_ref(y0, y1, y2, DEPTH)
-    got = mct_cuda.rct_writeframe(y0, y1, y2, DEPTH)
-    rct_err = max(int((a - b).abs().max()) for a, b in zip(got, ref))
-    packed_k = torch.empty(3 * npx, dtype=torch.int16, device=dev)
-    packed_r = torch.empty_like(packed_k)
-    mct_cuda.rct_writeframe(y0, y1, y2, DEPTH, out=packed_k)
-
-    def rct_plain():
-        for i, c in enumerate(mct_cuda.rct_writeframe_ref(y0, y1, y2, DEPTH)):
-            packed_r[i * npx:(i + 1) * npx] = \
-                mct_cuda.narrow(c, torch.int16).reshape(-1)
-
-    rct_plain()
-    rct_err = max(rct_err, int((packed_k.to(torch.int32)
-                                - packed_r.to(torch.int32)).abs().max()))
-    if rct_err:
-        raise RuntimeError(f"RCT kernel differs from its plain version "
-                           f"(max abs err {rct_err})")
-    rct_ms = _cuda_ms(lambda: mct_cuda.rct_writeframe(
-        y0, y1, y2, DEPTH, out=packed_k), 20, True)
-    rct_plain_ms = _cuda_ms(rct_plain, 20)
-    rct_bound = _bound(3 * npx * 4 + packed_k.numel() * 2)
+    rct = _rct_check(outs[:3])
+    rct_err, rct_ms = rct["max_abs_err"], rct["ms"]
+    rct_plain_ms, rct_bound = rct["plain_ms"], rct["bound_ms"]
     program_ms = _cuda_ms(lambda: prog(**args), 5)
     print(f"phase 4 rct kernel == rct_writeframe_ref + pack on 3 x {H}x{W} "
-          f"planes (min {int(y1.min())}, max {int(y1.max())} chroma): "
+          f"planes (min {rct['chroma'][0]}, max {rct['chroma'][1]} chroma): "
           f"kernel {rct_ms:.4f} ms, plain {rct_plain_ms:.3f} ms, bound "
           f"{rct_bound:.4f} ms (bytes), {100 * rct_bound / rct_ms:.1f}% of "
           f"bound; whole device program {program_ms:.2f} ms/frame")
-    del outs, y0, y1, y2, ref, got, args
+    del outs, args
 
     # ---- phase 5: the main path through the public entry point
     dec = Decoder(device="cuda")
@@ -1349,11 +1495,15 @@ def main() -> int:
     ict_entry, c2, c2_paths = _phase6(dev)
 
     # ---- phase 7: BASELINE config 4 (a crop), the v2 bucketed path
-    refine_entries, c4, c4_paths = _phase7(dev)
+    refine_entries, c4, c4_paths, c4_data = _phase7(dev)
 
     # ---- phase 8: BASELINE config 5, an MXF of four 4K frames
-    wire_entry, c5_paths = _phase8(dev, sources["natural"],
-                                   streams["natural"])
+    wire_entry, c5_paths, c5_data = _phase8(dev, sources["natural"],
+                                            streams["natural"])
+
+    # ---- phase 9: phase 8's batch sharded over the card listed D times
+    c9, c9_paths = _phase9(dev, c5_data, c4_data,
+                           wire_entry["decode_batch_ms_per_frame"])
 
     cleanup_src = "ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192"
     kernels = [
@@ -1361,17 +1511,19 @@ def main() -> int:
              source="ffmpeg_ht_tpu_torch/csrc/ht_vlc_pass.cu",
              replaces=cleanup_src, **c3["vlc"],
              c2_decode_batch_shapes=c2["vlc"],
-             c4_decode_batch_buckets=c4["vlc"]),
+             c4_decode_batch_buckets=c4["vlc"],
+             c5_shard_lanes=c9["vlc"]),
         dict(name="ht_magsgn_pass", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/ht_magsgn_pass.cu",
              replaces=cleanup_src, **c3["magsgn"],
              c2_decode_batch_shapes=c2["magsgn"],
-             c4_decode_batch_buckets=c4["magsgn"]),
+             c4_decode_batch_buckets=c4["magsgn"],
+             c5_shard_lanes=c9["magsgn"]),
         dict(name="rct_writeframe", route="cuda",
              source="ffmpeg_ht_tpu_torch/csrc/rct_writeframe.cu",
              replaces="ffmpeg_ht_tpu/ops/mct_pallas.py:36",
              max_abs_err=rct_err, ms=rct_ms, plain_ms=rct_plain_ms,
-             bound_ms=rct_bound),
+             bound_ms=rct_bound, c5_shard_lanes=c9["rct"]),
         ict_entry,
         *refine_entries,
         wire_entry,
@@ -1383,7 +1535,7 @@ def main() -> int:
     # decode_batch (phase 7) for the two refinement kernels, c5
     # decode_batch (phase 8) for the wire pack
     paths = {"c3_decode_stream": (launches, len(order)), **c2_paths,
-             **c4_paths, **c5_paths}
+             **c4_paths, **c5_paths, **c9_paths}
     main_paths = {"ict_writeframe": "c2_decode_batch",
                   "ht_sigprop_pass": "c4_decode_batch",
                   "ht_magref_pass": "c4_decode_batch",
@@ -1394,7 +1546,8 @@ def main() -> int:
         per_frame = {p: n[p] / f for p, (_c, f) in paths.items()}
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             k.get(s, {}).get("max_abs_err", 0)
-            for s in ("c2_decode_batch_shapes", "c4_decode_batch_buckets")])
+            for s in ("c2_decode_batch_shapes", "c4_decode_batch_buckets",
+                      "c5_shard_lanes")])
         # no single PyTorch call computes an HT cleanup pass, SigProp /
         # MagRef, RCT or ICT with DC shift, clip and the narrow pack, nor
         # the 32-sample-group bit pack

@@ -29,10 +29,14 @@ that CPU tensors take:
 - ``models/assembly``: the v3 fused program and the v2 bucketed program;
 - ``models/decoder``: ``Decoder(device, bitexact, reduction_factor,
   max_layers, wire_pack)`` with ``decode``, ``decode_async``,
-  ``decode_stream``, ``decode_batch`` and ``bench_resident``, and the
+  ``decode_stream``, ``decode_batch`` (``devices=[...]`` shards the
+  frame axis over several devices, ``require_shard`` raises
+  ``UnshardableBatch`` when it cannot) and ``bench_resident``, and the
   one-shot ``decode_frame_cuda``;
 - ``cli``: the ``jxt-torch`` tool (``decode``, ``encode``, ``probe``;
-  ``--device``), also ``python -m ffmpeg_ht_tpu_torch.cli``.
+  ``--device``), also ``python -m ffmpeg_ht_tpu_torch.cli``;
+- ``bench``: BASELINE's five configurations timed through the port, one
+  JSON line (``python -m ffmpeg_ht_tpu_torch.bench [--device cuda]``).
 
 The package imports neither ``jax`` nor ``ffmpeg_ht_tpu``.
 """

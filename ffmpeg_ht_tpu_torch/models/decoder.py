@@ -42,12 +42,21 @@ format is negotiated before a program is built, so a stream that no
 format fits raises the reference's PatchWelcome on every route.
 ``FFMPEG_HT_TPU_V3=0`` turns the V3Program off in ``decode*`` (the
 reference's switch), so fast-profile streams take the BucketProgram.
-``decode_frame_cuda`` is the one-shot wrapper. Not ported: sharding
-``decode_batch`` over several devices (ROADMAP.md).
+``decode_frame_cuda`` is the one-shot wrapper.
+
+``decode_batch(streams, devices=[...])`` shards the frame axis of a
+same-geometry v3 batch over the listed devices (the reference's
+``mesh=``, decoder.py:712-739,804-936): the frames are padded to a
+multiple of D = len(devices) by repeating the last one, each device runs
+the V3Program of its F/D frames with its own lane arguments and prefill,
+and the pad frames are dropped. A batch that cannot shard raises
+``UnshardableBatch`` with ``require_shard=True``, else it logs the
+reason and decodes on one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -70,7 +79,8 @@ from ffmpeg_ht_tpu_torch.models.fastpath import (_Geometry, finish_v3_numpy,
 from ffmpeg_ht_tpu_torch.models.host_decoder import DecodedFrame
 from ffmpeg_ht_tpu_torch.ops.wirepack import unpack_words
 from ffmpeg_ht_tpu_torch.utils.device import resolve_device
-from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
+from ffmpeg_ht_tpu_torch.utils.errors import InvalidData, UnshardableBatch
+from ffmpeg_ht_tpu_torch.utils.log import logger
 
 _LANE_PAD = 8          # lane count rounded up to a multiple of this
 _HOST_AREA = 256       # codeblocks smaller than this decode on the host
@@ -316,6 +326,17 @@ def _pad(n, q):
     return ((n + q - 1) // q) * q
 
 
+def _ms_class(frames):
+    """The MagSgn budget class that bounds every device lane's maxbp in
+    ``build_v3_frame`` columns `frames`, or None when one exceeds 25."""
+    mb = 1
+    for fc in frames:
+        devl = fc["qws"] > 0
+        if devl.any():
+            mb = max(mb, int(fc["maxbp"][devl].max()))
+    return next((c for c in (8, 12, 16, 20, 25) if mb <= c), None)
+
+
 def _pow2(n: int, lo: int) -> int:
     v = lo
     while v < n:
@@ -520,13 +541,36 @@ class Decoder:
             self._geoms[key] = fg
         return fg
 
-    def decode_batch(self, streams) -> List[DecodedFrame]:
+    def decode_batch(self, streams, devices=None,
+                     require_shard: bool = False) -> List[DecodedFrame]:
         """Decode many frames; same-geometry streams run as ONE device
         program (the frame axis concatenates into the lane axis): the
         V3Program of F frames, or the BucketProgram over the
         frame-replicated geometry with the frames' buckets merged
         (decoder.py:712-802). Anything else decodes stream by stream
-        through ``decode``."""
+        through ``decode``.
+
+        `devices`, a sequence of device names or torch.devices (one may
+        repeat: it then runs that many shards), shards the frame axis of
+        a v3 batch over them (``_decode_batch_sharded``), in place of
+        the reference's `mesh`; each is resolved first, so a CUDA entry
+        without a card raises. When the batch cannot shard,
+        `require_shard` raises ``UnshardableBatch`` naming the reason;
+        otherwise the reason is logged as a warning and the batch
+        decodes on the decoder's own device."""
+        if devices is not None:
+            if isinstance(devices, (str, torch.device)):
+                raise TypeError("devices must be a sequence of devices")
+            devs = [resolve_device(d) for d in devices]
+            if not devs:
+                raise ValueError("devices is empty")
+            out, why = self._decode_batch_sharded(streams, devs)
+            if out is not None:
+                return out
+            if require_shard:
+                raise UnshardableBatch(why)
+            logger.warning("decode_batch: cannot shard (%s); "
+                           "decoding single-device", why)
         if not streams:
             return []
         hdrs = [self._parse(d) for d in streams]
@@ -605,6 +649,75 @@ class Decoder:
         return self._split_frames([(h, fg.tiles) for h in hdrs], fg.geom,
                                   host)
 
+    def _shard_plan(self, streams, D: int):
+        """((headers, FlatGeometry, the frames' ``build_v3_frame`` columns
+        padded to a multiple of D by repeating the last, frames per shard,
+        the batch's one ms_class), None), or (None, the reason the batch
+        cannot shard), with the reference's reasons in its order of
+        checks (decoder.py:824-896)."""
+        hdrs = [self._parse(d) for d in streams]
+        if not hdrs:
+            return None, "empty batch"
+        if self.max_layers:
+            return None, "max_layers truncation is per-frame host logic"
+        for i, h in enumerate(hdrs):
+            if not FP.fast_profile(h):
+                return None, f"stream {i} leaves the fast-lane profile " \
+                    "(POC/PPM/PPT/ROI/lowres/non-HTONLY/oversize cblk)"
+        if len({FP.geometry_fingerprint(h) for h in hdrs}) != 1:
+            return None, "streams do not share one geometry"
+        fg = self._fast_geom(hdrs[0])
+        if fg.v3_plan is None:
+            fg.v3_plan = ASM.build_plan(fg) or False
+        if fg.v3_plan is False or fg.ncblks == 0:
+            return None, "geometry has no v3 assembly plan"
+        frames = []
+        for i, hdr in enumerate(hdrs):
+            cols = FP.parse_frame_flat(hdr, fg)
+            if cols is None:
+                return None, f"stream {i} failed the native flat parse"
+            fc = FP.build_v3_frame(fg, cols)
+            if fc is None:
+                return None, f"stream {i} has host-only codeblocks"
+            frames.append(fc)
+        frames.extend([frames[-1]] * ((-len(frames)) % D))
+        # one class for the whole batch, as the reference's one program
+        ms_class = _ms_class(frames)
+        if ms_class is None:
+            return None, "magnitude exponent > 25 (host-tier codeblocks)"
+        return (hdrs, fg, frames, len(frames) // D, ms_class), None
+
+    def _decode_batch_sharded(self, streams, devices):
+        """Shard the frame axis of a same-geometry v3 batch over
+        `devices` (resolved torch.devices): shard d runs the cached
+        V3Program of its Fl frames on devices[d] with its own lane
+        arguments and shard-local prefill (``finish_v3_numpy`` of its
+        frames). Every shard is uploaded and launched before any fetch is
+        waited for, so shards on several cards overlap. Returns (the F
+        frames, None), or (None, the reason) when the batch cannot shard
+        (``_shard_plan``)."""
+        plan, why = self._shard_plan(streams, len(devices))
+        if plan is None:
+            return None, why
+        hdrs, fg, frames, Fl, ms_class = plan
+        self._negotiate(hdrs)
+        fetches = []
+        for d, dev in enumerate(devices):
+            prog, args = self._v3_shard(fg, frames[d * Fl:(d + 1) * Fl],
+                                        ms_class, dev)
+            with torch.cuda.device(dev) if dev.type == "cuda" \
+                    else contextlib.nullcontext():
+                fetches.append(self._start_fetch(prog(**args)))
+        out = []
+        for d, fetch in enumerate(fetches):
+            # the pad frames close the last shards: split the real ones
+            # only (_split_frames reads the flag at the buffer's end)
+            real = hdrs[d * Fl:(d + 1) * Fl]
+            out.extend(self._split_frames([(h, fg.tiles) for h in real],
+                                          fg.geom, fetch()))
+        self.v3_frames += len(hdrs)
+        return out, None
+
     def bench_resident(self, streams, n_it: int = 10, reps: int = 3):
         """Device-resident decode rate for same-geometry streams
         (decoder.py:985-1052).
@@ -631,8 +744,8 @@ class Decoder:
             raise ValueError("streams not v3-capable (assembly plan, no "
                              "refinement lanes, maxbp <= 25)")
         prog, args = v3
-        sync = torch.cuda.synchronize if self.device.type == "cuda" \
-            else (lambda: None)
+        sync = (lambda: torch.cuda.synchronize(self.device)) \
+            if self.device.type == "cuda" else (lambda: None)
         prog(**args)                                  # warm-up
         sync()
         best = float("inf")
@@ -698,14 +811,15 @@ class Decoder:
             if fc is None:
                 return None
             frames.append(fc)
-        mb = 1
-        for fc in frames:
-            devl = fc["qws"] > 0
-            if devl.any():
-                mb = max(mb, int(fc["maxbp"][devl].max()))
-        if mb > 25:
+        ms_class = _ms_class(frames)
+        if ms_class is None:
             return None
-        ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
+        return self._v3_shard(fg, frames, ms_class, self.device, wire_pack)
+
+    def _v3_shard(self, fg, frames, ms_class: int, device, wire_pack=None):
+        """(the V3Program for ``build_v3_frame`` columns `frames` at
+        `ms_class`, cached in ``fg.v3_progs`` by frame count, class,
+        identity step and pack; its arguments on `device`)."""
         args, F = finish_v3_numpy(fg, frames, fg.geom.total)
         # lossless frames: istep is uniformly the identity 32768
         no_istep = bool(np.all(args["istep"] == 32768))
@@ -718,7 +832,7 @@ class Decoder:
                              ms_class=ms_class, n_pad=fg.ncblks, frames=F,
                              no_istep=no_istep, wire_pack=wp)
             fg.v3_progs[key] = prog
-        return prog, {k: to_torch(v, self.device) for k, v in args.items()}
+        return prog, {k: to_torch(v, device) for k, v in args.items()}
 
     def _dispatch(self, geom: _Geometry, buckets, prefill):
         """Pack the object path's buckets and run the BucketProgram (no
@@ -790,10 +904,11 @@ class Decoder:
         return self._split_frames([(hdr, tiles)], geom, packed)[0]
 
     def _split_frames(self, frames, geom, packed) -> List[DecodedFrame]:
-        """The packed output of len(frames) (hdr, tiles) frames of one
-        geometry -> DecodedFrames (a wire-packed output is unpacked
-        first, decoder.py:632-642); raises InvalidData when the ok flag
-        is clear."""
+        """The packed output of a program whose first len(frames) frames
+        are the (hdr, tiles) frames of one geometry -> DecodedFrames (a
+        wire-packed output is unpacked first, decoder.py:632-642); raises
+        InvalidData when the ok flag, the buffer's last element, is
+        clear. Frames after them (a shard's pad frames) are dropped."""
         buf = packed.numpy()
         if buf.dtype == np.int32:            # wire words, uint32 bits
             words = buf.view(np.uint32)

@@ -294,10 +294,11 @@ def ht_sigprop_pass(sig, spw, has_sp, causal, qw: int, qh: int, w: int,
                         device=dev)
     if N == 0:
         return words
-    err = build.load().lib.ht_sigprop_pass_launch(
-        sig.data_ptr(), spw.data_ptr(), spw.shape[1], has_sp.data_ptr(),
-        causal.data_ptr(), N, qw, qh, w, h, words.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = build.load().lib.ht_sigprop_pass_launch(
+            sig.data_ptr(), spw.data_ptr(), spw.shape[1], has_sp.data_ptr(),
+            causal.data_ptr(), N, qw, qh, w, h, words.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ht_sigprop_pass_launch")
     ht_sigprop_pass.launches += 1
     return words
@@ -327,10 +328,12 @@ def ht_magref_pass(mu, sig, mrw, pLSB, has_mr, words, qw: int, qh: int,
     out = torch.empty_like(mu)
     if N == 0:
         return out
-    err = build.load().lib.ht_magref_pass_launch(
-        mu.data_ptr(), sig.data_ptr(), mrw.data_ptr(), mrw.shape[1],
-        pLSB.data_ptr(), has_mr.data_ptr(), words.data_ptr(), N, qw, qh, w,
-        h, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = build.load().lib.ht_magref_pass_launch(
+            mu.data_ptr(), sig.data_ptr(), mrw.data_ptr(), mrw.shape[1],
+            pLSB.data_ptr(), has_mr.data_ptr(), words.data_ptr(), N, qw,
+            qh, w, h, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ht_magref_pass_launch")
     ht_magref_pass.launches += 1
     return out

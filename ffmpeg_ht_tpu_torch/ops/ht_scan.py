@@ -383,11 +383,12 @@ def ht_vlc_pass(melw, vlcw, mel_lim, qws, qhs, qw: int, qh: int):
     rec = torch.empty((N, qh, qw), dtype=torch.int32, device=dev)
     if N == 0:
         return rec
-    err = build.load().lib.ht_vlc_pass_launch(
-        melw.data_ptr(), melw.shape[1], vlcw.data_ptr(), vlcw.shape[1],
-        mel_lim.data_ptr(), qws.data_ptr(), qhs.data_ptr(),
-        _device_tables(dev).data_ptr(), N, qw, qh, rec.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = build.load().lib.ht_vlc_pass_launch(
+            melw.data_ptr(), melw.shape[1], vlcw.data_ptr(), vlcw.shape[1],
+            mel_lim.data_ptr(), qws.data_ptr(), qhs.data_ptr(),
+            _device_tables(dev).data_ptr(), N, qw, qh, rec.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ht_vlc_pass_launch")
     ht_vlc_pass.launches += 1
     return rec
@@ -418,11 +419,13 @@ def ht_magsgn_pass(rec, msw, pLSB, maxbp, ms_lim, qws, qhs, qw: int,
     ok = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return mu, sig, ok
-    err = build.load().lib.ht_magsgn_pass_launch(
-        rec.data_ptr(), msw.data_ptr(), msw.shape[1], pLSB.data_ptr(),
-        maxbp.data_ptr(), ms_lim.data_ptr(), qws.data_ptr(), qhs.data_ptr(),
-        N, qw, qh, ms_class, mu.data_ptr(), sig.data_ptr(), ok.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = build.load().lib.ht_magsgn_pass_launch(
+            rec.data_ptr(), msw.data_ptr(), msw.shape[1], pLSB.data_ptr(),
+            maxbp.data_ptr(), ms_lim.data_ptr(), qws.data_ptr(),
+            qhs.data_ptr(), N, qw, qh, ms_class, mu.data_ptr(),
+            sig.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ht_magsgn_pass_launch")
     ht_magsgn_pass.launches += 1
     return mu, sig, ok

@@ -154,10 +154,11 @@ def rct_writeframe(y0, y1, y2, cbps: int, out=None):
     ret = out
     if out is None:
         out = torch.empty((3 * n,), dtype=torch.int32, device=y0.device)
-    err = build.load().lib.rct_writeframe_launch(
-        y0.data_ptr(), y1.data_ptr(), y2.data_ptr(), n, cbps,
-        out.data_ptr(), _OUT_KIND[out.dtype],
-        torch.cuda.current_stream(y0.device).cuda_stream)
+    with torch.cuda.device(y0.device):
+        err = build.load().lib.rct_writeframe_launch(
+            y0.data_ptr(), y1.data_ptr(), y2.data_ptr(), n, cbps,
+            out.data_ptr(), _OUT_KIND[out.dtype],
+            torch.cuda.current_stream(y0.device).cuda_stream)
     build.check(err, "rct_writeframe_launch")
     rct_writeframe.launches += 1
     if ret is None:
@@ -205,9 +206,11 @@ def ict_writeframe(frames, cbps: int, transform: int, out=None,
     else:
         ptrs = [(ctypes.c_void_p * F)(*(p[c].data_ptr() for p in frames))
                 for c in range(3)]
-        err = build.load().lib.ict_writeframe_launch(
-            *ptrs, F, n, cbps, out.data_ptr(), stride, _OUT_KIND[out.dtype],
-            mode, torch.cuda.current_stream(y0.device).cuda_stream)
+        with torch.cuda.device(y0.device):
+            err = build.load().lib.ict_writeframe_launch(
+                *ptrs, F, n, cbps, out.data_ptr(), stride,
+                _OUT_KIND[out.dtype], mode,
+                torch.cuda.current_stream(y0.device).cuda_stream)
         build.check(err, "ict_writeframe_launch")
         ict_writeframe.launches += -(-F // _ICT_MAX_FRAMES)
     if ret is None:

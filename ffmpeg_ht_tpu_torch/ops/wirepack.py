@@ -90,9 +90,10 @@ def pack_words(packed, depth: int):
                         f"tensor, got {packed.dtype}")
     out = torch.empty(packed_words_len(n, depth) + 1, dtype=torch.int32,
                       device=packed.device)
-    err = build.load().lib.wire_pack_launch(
-        packed.data_ptr(), n, depth, out.data_ptr(),
-        torch.cuda.current_stream(packed.device).cuda_stream)
+    with torch.cuda.device(packed.device):
+        err = build.load().lib.wire_pack_launch(
+            packed.data_ptr(), n, depth, out.data_ptr(),
+            torch.cuda.current_stream(packed.device).cuda_stream)
     build.check(err, "wire_pack_launch")
     pack_words.launches += 1
     return out

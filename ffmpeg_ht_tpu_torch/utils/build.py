@@ -9,7 +9,10 @@ which is loaded with ``ctypes``. No PyTorch header is included, so a
 build takes seconds rather than minutes. The library is rebuilt when any
 source is newer than it; the build's nvcc output (ptxas registers and
 shared memory) is kept beside it and loaded with it. A missing ``nvcc``
-or a failed compile raises: there is no fallback.
+or a failed compile raises: there is no fallback. Each wrapper launches
+inside ``torch.cuda.device`` of its tensors, on that device's current
+stream: the entry points launch on the runtime's current device, so a
+tensor on a second card would otherwise meet a stream of another device.
 """
 
 from __future__ import annotations

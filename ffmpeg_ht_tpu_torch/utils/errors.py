@@ -20,7 +20,7 @@ class PatchWelcome(J2KError):
 
 
 class UnshardableBatch(J2KError):
-    """decode_batch(mesh=, require_shard=True) could not shard the batch.
+    """decode_batch(devices=, require_shard=True) could not shard the batch.
 
     The message names the first stream/feature that left the sharded (v3)
     profile. Without require_shard the same condition is a logged warning

@@ -27,7 +27,9 @@ writes the ok flag word after the words; at the edges of its 8192-sample
 tile (one short, one tile, one more, several tiles and a ragged tail),
 at n = 0 (the flag word alone), on a grid of more tiles than the card
 holds at once, and from every start offset of 1-7 samples (the scalar
-path).
+path). With two cards or more: every kernel on the second card's tensors
+while the first is current (the wrappers' launch guard), and
+``decode_batch(devices=<every card>)`` against one card.
 """
 
 import numpy as np
@@ -562,3 +564,60 @@ def test_wire_pack_kernel_rejects_bad_args(cuda):
         wirepack.pack_words(flat.to(torch.int32), 10)
     with pytest.raises(ValueError):
         wirepack.pack_words(flat.view(8, 8), 10)
+
+
+@pytest.fixture
+def second_card():
+    """The second card, with the first one current: a launch that follows
+    the runtime's current device instead of its tensors' device meets a
+    stream of another card. Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+def test_kernels_on_a_second_card(second_card):
+    """Every kernel, given the second card's tensors, equals its plain
+    version: each wrapper launches under its tensors' device."""
+    test_cleanup_kernel_matches_ref(second_card, 16, 16, 129, 41)
+    test_rct_kernel_matches_ref(second_card, 10, (37, 53))
+    for transform, out_dtype in ((DWT97_INT, torch.int16),
+                                 (DWT97, torch.uint8)):
+        test_ict_kernel_matches_ref(second_card, transform, out_dtype,
+                                    (37, 53))
+    test_refine_kernel_matches_ref_random(second_card, 16, 16, 130, 32)
+    test_wire_pack_kernel_matches_ref(second_card, 10, 100003)
+    assert torch.cuda.current_device() == 0
+
+
+def test_decode_batch_over_the_cards(second_card):
+    """``decode_batch(devices=<every card>, require_shard=True)`` and a
+    ``Decoder`` on the second card give the single-card batch's bytes and
+    the source, with and without the wire pack; the cleanup pair launches
+    once a card."""
+    from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+    from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
+
+    rng = np.random.default_rng(8)
+    imgs = [rng.integers(0, 1024, (96, 128, 3), dtype=np.uint16)
+            for _ in range(5)]
+    streams = [encode_frame_htj2k(im, depth=10, mct=True, nreslevels=3,
+                                  log2_cblk_width=5, log2_cblk_height=5)
+               for im in imgs]
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    for wp in (False, True):
+        single = Decoder("cuda:0", wire_pack=wp).decode_batch(streams)
+        before = _launches()
+        sharded = Decoder("cuda:0", wire_pack=wp).decode_batch(
+            streams, devices=cards, require_shard=True)
+        assert _launches() == (before[0] + len(cards),
+                               before[1] + len(cards))
+        on_second = [Decoder(second_card, wire_pack=wp).decode(s)
+                     for s in streams]
+        for a, b, c, im in zip(single, sharded, on_second, imgs):
+            assert a.tobytes() == b.tobytes() == c.tobytes() \
+                == (im << 6).tobytes()
+    res = Decoder(second_card).bench_resident(streams, n_it=2, reps=1)
+    assert res["frames_merged"] == 5 and res["fps"] > 0
+    assert torch.cuda.current_device() == 0
