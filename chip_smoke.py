@@ -99,7 +99,25 @@ exits non-zero:
      ``_v3_shard``); phase 7's refined c4 streams raise
      ``UnshardableBatch`` with ``require_shard``, and without it log
      "cannot shard" and decode equal to their sources; the bench's c5 row
-     (``ffmpeg_ht_tpu_torch.bench.c5_row``) on phase 8's streams.
+     (``ffmpeg_ht_tpu_torch.bench.c5_row``) on phase 8's streams;
+ 10. the conformance corpus (a copy of tests/test_torch_conformance.py's,
+     which pins it; the FATE goldens are read from tests/ref): 36 small
+     streams, the 10 FATE codestreams and the device-path streams of the
+     conformance tests (PPT / PPM, POC, precincts, RPCL, placeholder
+     passes, lowres, signed samples, ROI, ``ht_mixed``, ``max_layers``,
+     RCT, ICT both ways, the wire pack), each through its own
+     ``Decoder(device="cuda")``: counts reset, the corpus decoded, counts
+     read; every frame equal to the host oracle (float 9/7 within 1 LSB),
+     its golden framecrc or its source; every stream on its expected
+     route with its expected launches; then, on every device stream's
+     lanes, the cleanup kernels and on every refined bucket the
+     refinement kernels against their plain versions, and RCT, ICT and
+     the wire pack on their streams; ``decode_batch`` of three frames of
+     one geometry (one V3Program with inert lanes) equal to the single
+     decodes; 128 bit-flip mutants of two streams, each giving the host
+     oracle's pixels or ``J2KError`` as the host oracle does, and
+     ``torch.cuda.synchronize()`` after them. ``--only conformance`` runs
+     phases 1, 2 and 10 alone (for a run under ``compute-sanitizer``).
 
 The last lines are the card's name and power limit, a JSON object with
 the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
@@ -108,6 +126,8 @@ network, no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import argparse
+import collections
 import contextlib
 import io
 import itertools
@@ -133,16 +153,18 @@ from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu_torch.containers import mux
 from ffmpeg_ht_tpu_torch.containers.mxf import demux_mxf, mux_mxf
 from ffmpeg_ht_tpu_torch.models import assembly as ASM
+from ffmpeg_ht_tpu_torch.models import decoder as DEC
 from ffmpeg_ht_tpu_torch.models import fastpath as FP
 from ffmpeg_ht_tpu_torch.models import host_decoder
 from ffmpeg_ht_tpu_torch.models.assembly import V3Program
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
-from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
+from ffmpeg_ht_tpu_torch.models.encoder import (encode_frame_htj2k,
+                                                encode_frame_t800)
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
 from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.utils import build, native
-from ffmpeg_ht_tpu_torch.utils.errors import UnshardableBatch
+from ffmpeg_ht_tpu_torch.utils.errors import J2KError, UnshardableBatch
 
 W, H, DEPTH = 4096, 2160, 10
 ENC = dict(depth=DEPTH, tile_width=4096, tile_height=4096,
@@ -695,35 +717,62 @@ def _zblk_hist(fg, cols):
             int((act & ~dev).sum()), int(deep.sum()))
 
 
+def _dref_bytes(lref, zb):
+    """The refinement bytes of lanes with Dref lengths `lref` and z_blk
+    `zb`, as finish_buckets caps them: SigProp's prefix (z_blk >= 2) and
+    MagRef's suffix (z_blk 3) of one segment. (In all, SigProp's,
+    MagRef's.)"""
+    lref, zb = np.asarray(lref, np.int64), np.asarray(zb)
+    cap = np.where(zb >= 3, FP.SP_CAP + FP.MR_CAP, FP.SP_CAP)
+    return (int(np.where(zb >= 2, np.minimum(lref, cap), 0).sum()),
+            int(np.where(zb >= 2, np.minimum(lref, FP.SP_CAP), 0).sum()),
+            int(np.where(zb >= 3, np.minimum(lref, FP.MR_CAP), 0).sum()))
+
+
 def _v2_buckets(dec, streams):
     """The buckets of the v2 program Decoder.decode_batch dispatches for
     same-geometry `streams` (``Decoder._v2_args``, which _fast_batch and
     _fast_launch call): (shapes, numpy bucket arrays, per bucket its lanes'
     cleanup (lcup, pcup) and the refinement bytes its lanes hold: in all,
     those SigProp reads, those MagRef reads)."""
-    hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
+    hdrs = [dec._parse(d) for d in streams]
     fg = dec._fast_geom(hdrs[0])
     _geom, (shapes, bargs, _pf_idx, _pf_val), accum = dec._v2_args(
         fg, [FP.parse_frame_flat(h, fg) for h in hdrs])
     segs = []
     for key in sorted(accum["buckets"]):
-        lc, pc, rb, sp, mr = [], [], [], [], []
+        lc, pc, lrefs, zbs = [], [], [], []
         for body, off, lcup, lref, zb in accum["buckets"][key]["rows"]:
             b = np.frombuffer(body, np.uint8)
             scup = (b[off + lcup - 1].astype(np.int64) << 4) \
                 + (b[off + lcup - 2] & 0x0F)
             lc.append(lcup)
             pc.append(lcup - scup)
-            # Dref bytes as finish_buckets caps them: SigProp's prefix
-            # (z_blk >= 2) and MagRef's suffix (z_blk 3) of one segment
-            cap = np.where(zb >= 3, FP.SP_CAP + FP.MR_CAP, FP.SP_CAP)
-            rb.append(np.where(zb >= 2, np.minimum(lref, cap), 0))
-            sp.append(np.where(zb >= 2, np.minimum(lref, FP.SP_CAP), 0))
-            mr.append(np.where(zb >= 3, np.minimum(lref, FP.MR_CAP), 0))
-        total = lambda parts: int(np.concatenate(parts).astype(np.int64)
-                                  .sum())
-        segs.append((np.concatenate(lc), np.concatenate(pc), total(rb),
-                     total(sp), total(mr)))
+            lrefs.append(lref)
+            zbs.append(zb)
+        segs.append((np.concatenate(lc), np.concatenate(pc),
+                     *_dref_bytes(np.concatenate(lrefs),
+                                  np.concatenate(zbs))))
+    return shapes, bargs, segs
+
+
+def _object_buckets(dec, data):
+    """As ``_v2_buckets``, for the object path's BucketProgram
+    (``Decoder._launch``: ``_build_batch``, then ``_bucket_arrays`` in key
+    order with the MagSgn class of each bucket's largest maxbp, as
+    ``Decoder._dispatch`` packs them)."""
+    hdr = dec._parse(data)
+    _geom, buckets, _prefill = DEC._build_batch(hdr, dec._parse_tiles(hdr))
+    shapes, bargs, segs = [], [], []
+    for key in sorted(buckets):
+        b = buckets[key]
+        args, _n = DEC._bucket_arrays(b)
+        msc = next(c for c in (8, 12, 16, 20, 25) if max(b.maxbp) <= c)
+        shapes.append((-(-b.w // 2), -(-b.h // 2), b.w, b.h, msc,
+                       b.refined))
+        bargs.append(args)
+        segs.append((np.asarray(b.lcup), np.asarray(b.pcup),
+                     *_dref_bytes([lr for _d, lr in b.dref], b.zblk)))
     return shapes, bargs, segs
 
 
@@ -1384,7 +1433,470 @@ def _phase9(dev, c5_data, c4_data, single_ms):
     return clean, paths
 
 
-def main() -> int:
+# ---- phase 10: the conformance corpus (a copy of the one in
+# tests/test_torch_conformance.py, which pins it; nothing of tests/ is
+# imported here)
+
+# `launches` counts, in this order, the HT cleanup pair (one VLC and one
+# MagSgn launch each), the refinement pair (SigProp then MagRef), RCT,
+# ICT and the wire pack
+KERNEL_GROUPS = ("cleanup", "refine", "rct", "ict", "wire_pack")
+_GROUP_COUNTERS = {"cleanup": ("ht_vlc_pass", "ht_magsgn_pass"),
+                   "refine": _REFINE, "rct": ("rct_writeframe",),
+                   "ict": ("ict_writeframe",), "wire_pack": ("wire_pack",)}
+ROUTES = {"v3": (1, 0, 0), "v2": (0, 1, 0), "host": (0, 0, 1)}
+_ROUTE_NAMES = {v: k for k, v in ROUTES.items()}
+POC = [(0, 0, 2, 2, 1, "lrcp"), (2, 0, 2, 33, 1, "rlcp")]
+SMALL = dict(nreslevels=3, log2_cblk_width=5, log2_cblk_height=5)
+# the one batch: three frames of the PPT stream's geometry
+BATCH_SEEDS = (31, 32, 33)
+# bit flips per mutant base
+FLIPS = 64
+REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "ref")
+
+_Case = collections.namedtuple(
+    "_Case", "name kind img enc dec route launches lossless golden")
+
+
+def _noise(seed, shape, hi=256, dtype=np.uint8):
+    return np.random.default_rng(seed).integers(0, hi, shape, dtype=dtype)
+
+
+def _lowamp(seed, h, w, amp):
+    """Low-amplitude content around mid-scale (an all-background ROI
+    shift stays lossless on it)."""
+    rng = np.random.default_rng(seed)
+    return (128 + rng.integers(-amp, amp + 1, (h, w))).astype(np.uint8)
+
+
+def _fate_corpus():
+    """The FATE streams (tests/test_fate.py:_corpus(), seed 20260816):
+    (name, kind, image, encoder options); their golden framecrc is
+    tests/ref/fate-<name>."""
+    rng = np.random.default_rng(20260816)
+    xx, yy = np.meshgrid(np.arange(96), np.arange(80))
+    smooth = ((xx + yy) * 255 // 176).astype(np.uint8)
+    return [
+        ("ht-gray-64", "ht", rng.integers(0, 256, (64, 64), np.uint8), {}),
+        ("ht-gray-odd", "ht",
+         rng.integers(0, 256, (53, 67), np.uint8), {}),
+        ("ht-rgb", "ht", rng.integers(0, 256, (48, 56, 3), np.uint8), {}),
+        ("ht-16bit", "ht",
+         rng.integers(0, 65536, (40, 40)).astype(np.uint16), {}),
+        ("ht-smooth", "ht", smooth, {}),
+        ("ht-3pass", "ht", rng.integers(0, 256, (64, 64), np.uint8),
+         {"refinement": True}),
+        ("ht-tiled", "ht", rng.integers(0, 256, (150, 140), np.uint8),
+         {"tile_width": 64, "tile_height": 64}),
+        ("j2k-53", "t800", rng.integers(0, 256, (64, 64), np.uint8),
+         {"pred": 1}),
+        ("j2k-97int", "t800", rng.integers(0, 256, (64, 64), np.uint8),
+         {"pred": 0}),
+        ("j2k-layers", "t800", rng.integers(0, 256, (64, 64), np.uint8),
+         {"pred": 0, "layer_rates": [8, 4, 2]}),
+    ]
+
+
+def _conformance_corpus():
+    """[_Case]: the FATE streams, then the tail. `route` is the route a
+    CPU run of the port takes, `launches` the kernel launches of one
+    decode by KERNEL_GROUPS (on the CPU, the calls of their plain
+    versions), `lossless` whether the frame must equal its source."""
+    fate_route = {"ht-3pass": ("v2", (2, 2, 0, 0, 0))}
+    cases = [_Case(name, kind, img, opts, {},
+                   *(fate_route.get(name, ("v3", (1, 0, 0, 0, 0)))
+                     if kind == "ht" else ("host", (0, 0, 0, 0, 0))),
+                   opts.get("pred", 1) == 1, True)
+             for name, kind, img, opts in _fate_corpus()]
+    rgb3 = [_noise(10 + i, (80, 112)) for i in range(3)]
+    signed = np.random.default_rng(18).integers(-512, 512, (128, 128),
+                                                dtype=np.int16)
+    for name, img, enc, dec, route, launches, lossless in (
+            ("ppt", _noise(1, (96, 128)), dict(ppt=True), {}, "v3",
+             (1, 0, 0, 0, 0), True),
+            ("ppt-multitile-layers-eph", _noise(2, (80, 112, 3)),
+             dict(tile_width=64, tile_height=64, ppt=True, eph=True,
+                  refinement=True, ht_layers=2), {}, "v2",
+             (2, 2, 0, 0, 0), True),
+            ("ppt-sop", _noise(3, (96, 128)),
+             dict(ppt=True, sop=True, eph=True), {}, "v3",
+             (1, 0, 0, 0, 0), True),
+            ("ppt-tile-parts", _noise(4, (96, 128)),
+             dict(ppt=True, tp_interval=3), {}, "v3", (1, 0, 0, 0, 0), True),
+            ("ppm", _noise(5, (96, 128)), dict(ppm=True), {}, "v3",
+             (1, 0, 0, 0, 0), True),
+            ("ppm-multitile", _noise(6, (80, 112, 3)),
+             dict(tile_width=48, tile_height=48, ppm=True), {}, "v2",
+             (1, 0, 0, 0, 0), True),
+            ("ppt-poc-layers", _noise(7, (96, 128)),
+             dict(ppt=True, refinement=True, ht_layers=2, nreslevels=4,
+                  poc=POC), {}, "v2", (2, 2, 0, 0, 0), True),
+            ("precincts", _noise(8, (96, 128)), dict(log2_prec_width=6), {},
+             "v3", (1, 0, 0, 0, 0), True),
+            ("rpcl-layers-precincts", _noise(9, (96, 128)),
+             dict(refinement=True, ht_layers=2, log2_prec_width=6,
+                  prog="rpcl"), {}, "v2", (2, 2, 0, 0, 0), True),
+            ("rgb-layers-multitile", rgb3,
+             dict(chroma_shift=(0, 0), refinement=True, ht_layers=2,
+                  tile_width=64, tile_height=64, log2_prec_width=5), {},
+             "v2", (2, 2, 0, 0, 0), True),
+            ("plhd-3layer", _noise(13, (96, 128)),
+             dict(refinement=True, ht_layers=3), {}, "v2", (2, 2, 0, 0, 0),
+             True),
+            ("plhd-single-16", _noise(14, (96, 128)),
+             dict(refinement=True, ht_plhd_single=True), {}, "v2",
+             (2, 2, 0, 0, 0), True),
+            # 8x8 codeblocks are under the host area: every lane decodes
+            # on the host inside the fast lane, and nothing launches
+            ("plhd-single-8", _noise(14, (96, 128)),
+             dict(refinement=True, ht_plhd_single=True, log2_cblk_width=3,
+                  log2_cblk_height=3), {}, "v2", (0, 0, 0, 0, 0), True),
+            ("lowres-r1", _noise(15, (96, 128)), dict(nreslevels=5),
+             dict(reduction_factor=1), "v3", (1, 0, 0, 0, 0), False),
+            ("lowres-r2", _noise(15, (96, 128)), dict(nreslevels=5),
+             dict(reduction_factor=2), "v3", (1, 0, 0, 0, 0), False),
+            ("lowres-rgb-multitile-prec", _noise(16, (80, 112, 3)),
+             dict(tile_width=64, tile_height=64, nreslevels=4,
+                  log2_prec_width=5, mct=True), dict(reduction_factor=1),
+             "v3", (1, 0, 4, 0, 0), False),
+            ("lowres-layers-poc", _noise(17, (96, 128)),
+             dict(nreslevels=4, refinement=True, ht_layers=2, poc=POC),
+             dict(reduction_factor=1), "v2", (2, 2, 0, 0, 0), False),
+            ("signed-10bit", signed,
+             dict(depth=10, sgnd=True, tile_width=128, tile_height=128,
+                  log2_cblk_width=6, log2_cblk_height=6), {}, "v3",
+             (1, 0, 0, 0, 0), True),
+            ("roi", _lowamp(19, 128, 128, 7),
+             dict(roi_shift=9, tile_width=128, tile_height=128,
+                  log2_cblk_width=6, log2_cblk_height=6), {}, "host",
+             (0, 0, 0, 0, 0), True),
+            ("ht-mixed", _noise(20, (64, 80)), dict(ht_mixed=True), {},
+             "host", (0, 0, 0, 0, 0), True),
+            ("max-layers-1", _noise(21, (96, 128)),
+             dict(refinement=True, ht_layers=2), dict(max_layers=1), "v2",
+             (2, 0, 0, 0, 0), False),
+            ("cblk-128x32", _noise(22, (96, 128)),
+             dict(log2_cblk_width=7, log2_cblk_height=5), {}, "host",
+             (0, 0, 0, 0, 0), True),
+            ("rct-rgb10", _noise(23, (96, 128, 3), 1024, np.uint16),
+             dict(depth=10, mct=True, **SMALL), {}, "v3", (1, 0, 1, 0, 0),
+             True),
+            ("ict-int", _noise(24, (96, 128, 3)),
+             dict(pred=0, mct=True, **SMALL), dict(bitexact=True), "v3",
+             (1, 0, 0, 1, 0), False),
+            ("ict-float", _noise(24, (96, 128, 3)),
+             dict(pred=0, mct=True, **SMALL), dict(bitexact=False), "v3",
+             (1, 0, 0, 1, 0), False),
+            ("wire-pack-12", _noise(25, (96, 128), 4096, np.uint16),
+             dict(depth=12, **SMALL), dict(wire_pack=True), "v3",
+             (1, 0, 0, 0, 1), True)):
+        cases.append(_Case(name, "ht", img, enc, dec, route, launches,
+                           lossless, False))
+    return cases
+
+
+def _batch_images(shape):
+    """Three seeded noise frames whose lower half is flat: the codeblocks
+    there code no pass, so their lanes are inert (qws = qhs = 0)."""
+    imgs = []
+    for seed in BATCH_SEEDS:
+        img = _noise(seed, shape)
+        img[shape[0] // 2:] = seed
+        imgs.append(img)
+    return imgs
+
+
+def _mutants():
+    """({base name: stream}, [(base name, byte position, bit mask)]): the
+    64x64 ``np.arange`` stream (flips seeded 7; the v3 program) and a
+    refined two-layer 96x128 stream (flips seeded 8; the v2 program with
+    SigProp / MagRef), FLIPS flips each."""
+    bases = {
+        "arange64": (np.arange(4096, dtype=np.uint8).reshape(64, 64), {},
+                     7),
+        "refined96x128": (np.random.default_rng(20261019).integers(
+            0, 256, (96, 128), dtype=np.uint8),
+            dict(refinement=True, ht_layers=2), 8)}
+    streams = {name: encode_frame_htj2k(img, **enc)
+               for name, (img, enc, _seed) in bases.items()}
+    muts = []
+    for name, (_img, _enc, seed) in bases.items():
+        rng = np.random.default_rng(seed)
+        for _ in range(FLIPS):
+            pos = int(rng.integers(0, len(streams[name])))
+            muts.append((name, pos, 1 << int(rng.integers(0, 8))))
+    return streams, muts
+
+
+def _encode_case(case):
+    fn = encode_frame_htj2k if case.kind == "ht" else encode_frame_t800
+    return fn(case.img, **case.enc)
+
+
+def _host_options(case):
+    return dict(bitexact=case.dec.get("bitexact", True),
+                reduction_factor=case.dec.get("reduction_factor", 0),
+                max_layers=case.dec.get("max_layers", 0))
+
+
+def _source_bytes(case):
+    """A lossless case's source in the negotiated pixel format: planes
+    interleaved, signed samples offset to unsigned, 9..15-bit samples
+    shifted to the top of 16 bits."""
+    img = case.img
+    if isinstance(img, list):
+        img = np.stack(img, -1)
+    depth = case.enc.get("depth", img.dtype.itemsize * 8)
+    x = img.astype(np.int64)
+    if case.enc.get("sgnd"):
+        x = x + (1 << (depth - 1))
+    if depth <= 8:
+        return x.astype(np.uint8).tobytes()
+    return (x << (16 - depth)).astype(np.uint16).tobytes()
+
+
+def _expected_counts(launches):
+    """{kernel counter: launches} for a case's `launches`."""
+    out = dict.fromkeys(_KERNELS, 0)
+    for group, n in zip(KERNEL_GROUPS, launches):
+        for k in _GROUP_COUNTERS[group]:
+            out[k] = n
+    return out
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _frame_problems(case, data, frame):
+    """What is wrong with a corpus stream's decoded frame: against the
+    port's host oracle (within 1 LSB for float 9/7), its golden framecrc
+    and its source; [] when nothing is."""
+    want = host_decoder.decode_frame(data, **_host_options(case))
+    bad = []
+    if frame.fmt.name != want.fmt.name or (frame.width, frame.height) \
+            != (want.width, want.height):
+        return [f"{frame.fmt.name} {frame.width}x{frame.height} != host "
+                f"{want.fmt.name} {want.width}x{want.height}"]
+    if case.dec.get("bitexact", True):
+        if frame.tobytes() != want.tobytes():
+            bad.append("differs from the host oracle")
+    else:
+        d, n = _host_diff(frame, data, False)
+        if d > 1:
+            bad.append(f"{n} samples off the host float oracle, max {d}")
+    if case.lossless and frame.tobytes() != _source_bytes(case):
+        bad.append("differs from its source")
+    if case.golden:
+        with open(os.path.join(REF_DIR, f"fate-{case.name}")) as f:
+            if mux.framecrc([frame]) != f.read():
+                bad.append("framecrc differs from its golden")
+    return bad
+
+
+def _stream_lanes(dec, data):
+    """The lanes of the device program ``dec.decode(data)`` runs: ("v3",
+    its V3Program, the program's arguments on the card, the decoded lanes'
+    (lcup, pcup)), ("v2", shapes, bucket arrays, per-bucket segments) for
+    the BucketProgram of the fast lane or the object path, or None."""
+    hdr = dec._parse(data)
+    if not dec.max_layers and FP.fast_profile(hdr):
+        fg = dec._fast_geom(hdr)
+        cols = FP.parse_frame_flat(hdr, fg)
+        if cols is not None:
+            v3 = dec._v3_program(fg, [cols])
+            if v3 is not None:
+                return ("v3", *v3,
+                        _v3_segments([FP.build_v3_frame(fg, cols)]))
+            return ("v2", *_v2_buckets(dec, [data]))
+    tiles = dec._parse_tiles(hdr)
+    if not DEC._supported_on_device(hdr, tiles):
+        return None
+    return ("v2", *_object_buckets(dec, data))
+
+
+def _outcome(decode):
+    """("frame", width, height, bytes) of decode(), or ("J2KError",)."""
+    try:
+        frame = decode()
+    except J2KError:
+        return ("J2KError",)
+    return ("frame", frame.width, frame.height, frame.tobytes())
+
+
+def _phase10(dev):
+    """The conformance corpus through ``Decoder(device="cuda")``: every
+    stream's frame against the host oracle, its golden framecrc or its
+    source, its route and launches against the expected ones; the
+    kernels against their plain versions on every device stream's lanes;
+    one ``decode_batch`` of three frames; the bit-flip mutants against
+    the host oracle. Returns ({kernel: max abs error in this phase},
+    {path: (launch counts, frames)})."""
+    t_phase = time.perf_counter()
+    corpus = _conformance_corpus()
+    streams = [_encode_case(c) for c in corpus]
+    print(f"phase 10 encode (port encoder): {len(corpus)} conformance "
+          f"streams ({sum(c.golden for c in corpus)} FATE), "
+          f"{sum(map(len, streams)) / 1e3:.1f} kB, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    problems, routes = [], collections.Counter()
+
+    # the main path: one decoder a stream, as a user would open it
+    decoders = [Decoder(device=dev, **c.dec) for c in corpus]
+    _reset_counts()
+    frames = []
+    for case, data, dec in zip(corpus, streams, decoders):
+        before = _counts()
+        frames.append(dec.decode(data))
+        got = _delta(before, _counts())
+        route = (dec.v3_frames, dec.v2_frames, dec.host_frames)
+        routes[_ROUTE_NAMES.get(route, str(route))] += 1
+        if route != ROUTES[case.route]:
+            problems.append(f"{case.name}: route (v3, v2, host) {route}, "
+                            f"expected {ROUTES[case.route]}")
+        if got != _expected_counts(case.launches):
+            problems.append(f"{case.name}: launches {got}, expected "
+                            f"{_expected_counts(case.launches)}")
+    counts = _counts()
+    for case, data, frame in zip(corpus, streams, frames):
+        problems += [f"{case.name}: {p}"
+                     for p in _frame_problems(case, data, frame)]
+
+    # the kernels against their plain versions on every device stream's
+    # lanes (these launches are not the main path's)
+    errs = dict.fromkeys(("vlc", "magsgn", "pair", "sigprop", "magref",
+                          "refine_pair", "rct", "ict", "wire_pack"), 0)
+    lanes = collections.Counter()
+    for case, data, dec in zip(corpus, streams, decoders):
+        if not case.launches[0]:
+            continue
+        sl = _stream_lanes(dec, data)
+        if sl[0] == "v3":
+            _kind, prog, args, segs = sl
+            c = _cleanup_check(args, segs, prog.qw, prog.qh, prog.ms_class)
+            lanes["v3"] += c["lanes"]["N"]
+            if case.launches[2]:
+                outs, _ok = prog.decode_planes(**args)
+                errs["rct"] = max(errs["rct"],
+                                  _rct_check(outs[:3])["max_abs_err"])
+                del outs
+        else:
+            _kind, shapes, bargs, segs = sl
+            c, ref, info = _v2_kernel_checks(dev, shapes, bargs, segs)
+            lanes["v2"] += sum(a["nreal"] for a in bargs)
+            lanes["refined buckets"] += info["buckets"]
+            for k, key in (("sigprop", "sigprop"), ("magref", "magref"),
+                           ("refine_pair", "pair")):
+                errs[k] = max(errs[k], ref[key]["max_abs_err"])
+        for k in ("vlc", "magsgn", "pair"):
+            errs[k] = max(errs[k], c[k]["max_abs_err"])
+        if case.launches[3]:
+            transform = DWT97_INT if dec.bitexact else DWT97
+            nums = _ict_check(dec, [data], transform)[0]
+            errs["ict"] = max(errs["ict"], nums["max_abs_err"])
+        if case.launches[4]:
+            packed16, n, cbps = _batch_output(
+                Decoder(device=dev, bitexact=dec.bitexact), [data])
+            words = wirepack.pack_words(packed16, cbps)
+            ref = wirepack.pack_words_ref(packed16[:n], cbps)
+            errs["wire_pack"] = max(
+                errs["wire_pack"],
+                int((words[:-1].to(torch.int64)
+                     - ref.to(torch.int64)).abs().max()),
+                abs(int(words[-1]) - int(packed16[-1])))
+    print(f"phase 10 kernels == their plain versions on the device "
+          f"streams' lanes ({dict(lanes)}), max abs err: {errs}")
+
+    # one batch: three frames of the PPT geometry in one V3Program whose
+    # lanes include inert ones, against the three single decodes
+    ppt = next(c for c in corpus if c.name == "ppt")
+    batch = [_encode_case(ppt._replace(img=img))
+             for img in _batch_images(ppt.img.shape)]
+    dec = Decoder(device=dev)
+    hdrs = [dec._parse(d) for d in batch]
+    fg = dec._fast_geom(hdrs[0])
+    cols = [FP.parse_frame_flat(h, fg) for h in hdrs]
+    prog, args = dec._v3_program(fg, cols)
+    inert = int((args["qws"] == 0).sum())
+    c = _cleanup_check(args, _v3_segments([FP.build_v3_frame(fg, x)
+                                           for x in cols]),
+                       prog.qw, prog.qh, prog.ms_class)
+    for k in ("vlc", "magsgn", "pair"):
+        errs[k] = max(errs[k], c[k]["max_abs_err"])
+    del args
+    before = _counts()
+    got = [fr.tobytes() for fr in dec.decode_batch(batch)]
+    batch_counts = _delta(before, _counts())
+    singles = [Decoder(device=dev).decode(d).tobytes() for d in batch]
+    host = [host_decoder.decode_frame(d, bitexact=True).tobytes()
+            for d in batch]
+    if got != singles or got != host or dec.v3_frames != 3 \
+            or batch_counts != _expected_counts((1, 0, 0, 0, 0)) \
+            or not inert:
+        problems.append(f"batch of 3: equal to the singles "
+                        f"{got == singles}, to the host oracle "
+                        f"{got == host}, v3 frames {dec.v3_frames}, "
+                        f"launches {batch_counts}, inert lanes {inert}")
+    print(f"phase 10 decode_batch of 3 PPT-geometry frames: one V3Program "
+          f"(F={prog.frames}, {c['lanes']['N']} lanes, {inert} inert), "
+          f"launches {batch_counts}; == the 3 single decodes "
+          f"{got == singles}, == the host oracle {got == host}")
+
+    # the mutants: the card's decoder against the host oracle, one decoder
+    # a base stream; any exception but J2KError (a CUDA fault among them)
+    # ends the run here
+    bases, muts = _mutants()
+    outcomes = collections.Counter()
+    decs = {name: Decoder(device=dev) for name in bases}
+    before = _counts()
+    for name, pos, bit in muts:
+        data = bytearray(bases[name])
+        data[pos] ^= bit
+        data = bytes(data)
+        card = _outcome(lambda: decs[name].decode(data))
+        want = _outcome(lambda: host_decoder.decode_frame(data,
+                                                          bitexact=True))
+        if card != want:
+            problems.append(f"mutant {name} byte {pos} bit {bit}: card "
+                            f"{card[0]}, host {want[0]}")
+        outcomes[(card == want, card[0])] += 1
+    torch.cuda.synchronize()
+    mutant_counts = _delta(before, _counts())
+    mut_routes = {n: (d.v3_frames, d.v2_frames, d.host_frames)
+                  for n, d in decs.items()}
+
+    agreed = sum(n for (same, _k), n in outcomes.items() if same)
+    j2k = sum(n for (same, k), n in outcomes.items() if same
+              and k == "J2KError")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 10 summary: {len(corpus)} streams by route "
+          f"{dict(routes)}; {len(frames)} frames checked against the host "
+          f"oracle, {sum(c.golden for c in corpus)} against their golden "
+          f"framecrc, {sum(c.lossless for c in corpus)} against their "
+          f"sources, and a batch of 3; {len(problems)} problems; mutants "
+          f"{agreed}/{len(muts)} agreed, {j2k} of "
+          f"them J2KError on both, card routes (v3, v2, host) "
+          f"{mut_routes}, torch.cuda.synchronize() clean after them; "
+          f"launches: corpus {counts}, batch {batch_counts}, mutants "
+          f"{mutant_counts}; {secs:.1f} s")
+    if problems:
+        raise RuntimeError("phase 10: " + "; ".join(problems))
+    return errs, {"c10_conformance": (counts, len(corpus))}
+
+
+def _ok_line():
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=["conformance"],
+                    help="run phases 1, 2 and 10 alone (the corpus on the "
+                         "card, e.g. under compute-sanitizer)")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1403,6 +1915,11 @@ def main() -> int:
     native.load()
     print(f"phase 2 native tier loaded: {native.LIB_PATH} ("
           f"{time.perf_counter() - t0:.1f} s, from {native.NATIVE_DIR})")
+    if only == "conformance":
+        _phase10(dev)
+        print(card)
+        print(_ok_line())
+        return 0
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(2024)
@@ -1505,6 +2022,15 @@ def main() -> int:
     c9, c9_paths = _phase9(dev, c5_data, c4_data,
                            wire_entry["decode_batch_ms_per_frame"])
 
+    # ---- phase 10: the conformance corpus on the card
+    c10, c10_paths = _phase10(dev)
+    c10_errs = {"ht_vlc_pass": c10["vlc"],
+                "ht_magsgn_pass": max(c10["magsgn"], c10["pair"]),
+                "rct_writeframe": c10["rct"], "ict_writeframe": c10["ict"],
+                "ht_sigprop_pass": c10["sigprop"],
+                "ht_magref_pass": max(c10["magref"], c10["refine_pair"]),
+                "wire_pack": c10["wire_pack"]}
+
     cleanup_src = "ffmpeg_ht_tpu/ops/ht_scan_pallas.py:192"
     kernels = [
         dict(name="ht_vlc_pass", route="cuda",
@@ -1535,7 +2061,7 @@ def main() -> int:
     # decode_batch (phase 7) for the two refinement kernels, c5
     # decode_batch (phase 8) for the wire pack
     paths = {"c3_decode_stream": (launches, len(order)), **c2_paths,
-             **c4_paths, **c5_paths, **c9_paths}
+             **c4_paths, **c5_paths, **c9_paths, **c10_paths}
     main_paths = {"ict_writeframe": "c2_decode_batch",
                   "ht_sigprop_pass": "c4_decode_batch",
                   "ht_magref_pass": "c4_decode_batch",
@@ -1544,10 +2070,11 @@ def main() -> int:
         main_path = main_paths.get(k["name"], "c3_decode_stream")
         n = {p: c[k["name"]] for p, (c, _f) in paths.items()}
         per_frame = {p: n[p] / f for p, (_c, f) in paths.items()}
+        k["c10_conformance"] = dict(max_abs_err=c10_errs[k["name"]])
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             k.get(s, {}).get("max_abs_err", 0)
             for s in ("c2_decode_batch_shapes", "c4_decode_batch_buckets",
-                      "c5_shard_lanes")])
+                      "c5_shard_lanes", "c10_conformance")])
         # no single PyTorch call computes an HT cleanup pass, SigProp /
         # MagRef, RCT or ICT with DC shift, clip and the narrow pack, nor
         # the 32-sample-group bit pack
@@ -1558,9 +2085,7 @@ def main() -> int:
                  bound_by="bytes", library_ms=None)
     print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(_ok_line())
     return 0
 
 
