@@ -32,9 +32,11 @@ exits non-zero:
      of the bound;
   5. the c3 main path: launch counts reset, three frames decoded, counts
      read; every frame must equal its source in the negotiated pixel
-     format (rgb48le, samples << 6), every kernel must have launched once
-     per frame and all frames must have gone through the v3 device
-     program; then the median ms per frame over a few repetitions;
+     format (rgb48le, samples << 6), the cleanup kernels, RCT and
+     ``coef_mosaic`` must have launched once per frame and ``dwt_lift``
+     once per DWT level of a frame, and all frames must have gone
+     through the v3 device program; then the median ms per frame over a
+     few repetitions;
   6. the c2 irreversible path: the four frames encoded with the port's
      encoder (two seeded natural, two smooth); from the very program and
      lane arguments ``decode_batch`` runs (``Decoder._v3_program``), ICT
@@ -117,7 +119,20 @@ exits non-zero:
      decodes; 128 bit-flip mutants of two streams, each giving the host
      oracle's pixels or ``J2KError`` as the host oracle does, and
      ``torch.cuda.synchronize()`` after them. ``--only conformance`` runs
-     phases 1, 2 and 10 alone (for a run under ``compute-sanitizer``).
+     phases 1, 2 and 10 alone (for a run under ``compute-sanitizer``);
+ 11. the v3 program's coefficient stages: on the programs and lanes of
+     c3's natural frame (5/3) and of the c2 batch (integer and float
+     9/7), ``coef_mosaic`` (dequant + prefill + band mosaic) against
+     ``coef_mosaic_ref`` and ``dwt_lift`` against ``dwt_level_ref`` at
+     every level (by bits, so float 9/7 too), each with its time by CUDA
+     events, its bound and share; the V3Program's ms per frame, device
+     operations and device-busy ms with the kernels and with the plain
+     torch stages forced on the card (the "before", for the record).
+     Phases 4-10 already run every band-direct V3Program through these
+     kernels: the launch counts of phases 5, 6, 9 and 10 include them,
+     phase 7 checks that the v2 path launches neither, and phase 10
+     checks both against their plain versions on every band-direct
+     corpus stream.
 
 The last lines are the card's name and power limit, a JSON object with
 the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
@@ -161,7 +176,8 @@ from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.models.encoder import (encode_frame_htj2k,
                                                 encode_frame_t800)
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
-from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
+from ffmpeg_ht_tpu_torch.ops import (coef_cuda, dwt_cuda, dwt_torch,
+                                     ht_refine, ht_scan, mct_cuda, wirepack)
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.utils import build, native
 from ffmpeg_ht_tpu_torch.utils.errors import J2KError, UnshardableBatch
@@ -484,8 +500,13 @@ _KERNELS = {"ht_vlc_pass": ht_scan.ht_vlc_pass,
             "ht_magref_pass": ht_refine.ht_magref_pass,
             # the wrapper: one call launches the two refinement kernels
             "ht_refine": ht_refine.decode_refinement_scan,
-            "wire_pack": wirepack.pack_words}
+            "wire_pack": wirepack.pack_words,
+            # one count a call: the mosaic launch and the prefill launch
+            "coef_mosaic": coef_cuda.coef_mosaic,
+            # one count a (row, column) launch pair: a level of <= 32 planes
+            "dwt_lift": dwt_cuda.dwt_lift}
 _REFINE = ("ht_sigprop_pass", "ht_magref_pass", "ht_refine")
+_LIFT = ("coef_mosaic", "dwt_lift")
 
 
 def _counts():
@@ -495,6 +516,16 @@ def _counts():
 def _reset_counts():
     for fn in _KERNELS.values():
         fn.launches = 0
+
+
+def _lift_want(dec, data, frames: int, calls: int = 1):
+    """{"coef_mosaic": n, "dwt_lift": n}: the launches of `calls` calls of
+    the V3Program for `frames` frames that `dec` built for `data`'s
+    geometry; zeros when it built none (the v2 and host routes)."""
+    fg = dec._fast_geom(dec._parse(data))
+    progs = [p for k, p in fg.v3_progs.items() if k[0] == frames]
+    per = progs[0].kernel_launches() if progs else dict.fromkeys(_LIFT, 0)
+    return {k: calls * n for k, n in per.items()}
 
 
 def _host_diff(frame, data, bitexact: bool):
@@ -572,11 +603,185 @@ def _ict_check(dec, streams, transform):
                                      for c in cols_list]), prog
 
 
+_CLEANUP_ARGS = ("msw", "melw", "vlcw", "pLSB", "maxbp", "ms_lim", "mel_lim",
+                 "qws", "qhs")
+
+
+def _bits_err(a, b):
+    """Max abs difference of two int32 or float32 tensors, by their bits
+    for float32 (so any float difference counts, a NaN included)."""
+    if a.shape != b.shape:
+        raise RuntimeError(f"shapes {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    if not a.numel():
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def _lift_check(prog, args, reps: int = 0):
+    """The two coefficient-stage kernels against their plain versions on a
+    band-direct V3Program's own lanes (`args`, on the card): coef_mosaic
+    on the cleanup kernels' mu, then dwt_lift level by level on the
+    kernel's bands, each level's inputs the kernel's previous level.
+    Raises on any difference. Returns, for each kernel, its max abs error
+    (by bits for float32) and, with `reps`, its ms by CUDA events (every
+    level back to back for dwt_lift), the plain version's ms (host clock,
+    one synchronised call), the bound from the bytes these inputs need
+    (each read once, each output written once), that of the two passes
+    this design makes, and dwt_lift's ms level by level."""
+    mu, _sig, _ok = ht_scan.decode_cleanup_scan_dims(
+        *(args[k] for k in _CLEANUP_ARGS), prog.qw, prog.qh, prog.ms_class)
+    lay, t = prog.layout, prog.transform
+    cin = (mu, args["magb"], args["istep"], args["scale97"], args["fscale"],
+           args["pf_idx"], args["pf_val"], lay, t, prog.no_istep)
+    bands = coef_cuda.coef_mosaic(*cin)
+    ref, coef_plain_ms = _plain(coef_cuda.coef_mosaic_ref, *cin)
+    coef = dict(max_abs_err=_bits_err(bands, ref))
+    if coef["max_abs_err"]:
+        raise RuntimeError(f"coef_mosaic differs from coef_mosaic_ref "
+                           f"(max abs err by bits {coef['max_abs_err']})")
+    views = lay.views(bands)
+    outs = [views[i] for i in prog._ll]
+    levels, err, samples = [], 0, 0
+    for lev in range(prog.levels):
+        todo, jobs = prog.level_jobs(lev, outs, views)
+        got = dwt_cuda.dwt_lift(jobs, t)
+        for g, j in zip(got, jobs):
+            err = max(err, _bits_err(g, dwt_torch.dwt_level_ref(
+                *j[:6], t, j[6])))
+            samples += g.numel()
+        levels.append(jobs)
+        for i, p in zip(todo, got):
+            outs[i] = p
+    if err:
+        raise RuntimeError(f"dwt_lift differs from dwt_level_ref (max abs "
+                           f"err by bits {err})")
+    lift = dict(max_abs_err=err)
+    if reps:
+        n_pf, N = args["pf_idx"].numel(), lay.n_lanes
+        mapped = int((lay.table[:, 4] * lay.table[:, 5]).sum())
+        # mu of the samples that land in a band, the table, the lane
+        # vectors, the prefill entries; every band sample written once
+        coef.update(
+            plain_ms=coef_plain_ms,
+            ms=_cuda_ms(lambda: coef_cuda.coef_mosaic(*cin), reps, True),
+            bound_ms=_bound(4 * mapped + 4 * lay.total + 64 * N + 8 * n_pf),
+            samples=lay.total, lanes=N)
+
+        def run_kernel():
+            for jobs in levels:
+                dwt_cuda.dwt_lift(jobs, t)
+
+        def run_plain():
+            for jobs in levels:
+                for j in jobs:
+                    dwt_torch.dwt_level_ref(*j[:6], t, j[6])
+        _r, lift_plain_ms = _plain(run_plain)
+        # a single pass reads every band sample once and writes every
+        # level's output once; the two passes move the level twice more
+        lift.update(plain_ms=lift_plain_ms,
+                    ms=_cuda_ms(run_kernel, reps, True),
+                    ms_by_level=[_cuda_ms(lambda: dwt_cuda.dwt_lift(jobs, t),
+                                          reps, True) for jobs in levels],
+                    bound_ms=_bound(8 * samples),
+                    two_pass_bound_ms=_bound(16 * samples),
+                    samples=samples, levels=len(levels),
+                    launches_per_call=sum(-(-len(j) // 32) for j in levels))
+    return {"coef_mosaic": coef, "dwt_lift": lift}
+
+
+@contextlib.contextmanager
+def _plain_stages():
+    """The V3Program's coefficient stages run as their plain torch
+    versions on the card too (phase 11's "before", for the record)."""
+    saved = coef_cuda.coef_mosaic, dwt_cuda.dwt_lift
+    coef_cuda.coef_mosaic = coef_cuda.coef_mosaic_ref
+    dwt_cuda.dwt_lift = lambda jobs, t: [
+        dwt_torch.dwt_level_ref(*j[:6], t, j[6]) for j in jobs]
+    try:
+        yield
+    finally:
+        coef_cuda.coef_mosaic, dwt_cuda.dwt_lift = saved
+
+
+def _device_ops(fn, reps: int = 3):
+    """(device operations, device-busy ms) per call of fn(), from
+    torch.profiler over `reps` calls after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    return (len(dev) / reps,
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps)
+
+
+def _phase11(dev, c3_stream, c2_streams):
+    """The v3 program's coefficient stages: coef_mosaic and dwt_lift
+    against their plain versions on the main paths' own programs and
+    lanes (c3's natural frame, 5/3; the c2 batch of four, integer and
+    float 9/7), with times, bounds and shares; the V3Program's ms/frame,
+    device operations and device-busy ms with the kernels and with the
+    plain versions forced on the card. Returns {config: numbers}."""
+    out = {}
+    for name, streams, bitexact in (("c3", [c3_stream], True),
+                                    ("c2_int", c2_streams, True),
+                                    ("c2_float", c2_streams, False)):
+        dec = Decoder(device=dev, bitexact=bitexact)
+        hdrs = [dec._parse(d) for d in streams]
+        fg = dec._fast_geom(hdrs[0])
+        prog, args = dec._v3_program(fg, [FP.parse_frame_flat(h, fg)
+                                          for h in hdrs])
+        if not prog.band_direct:
+            raise RuntimeError(f"phase 11 {name}: not a band-direct program")
+        F = prog.frames
+        m = _lift_check(prog, args, reps=10)
+        run = lambda: prog(**args)
+        after = _cuda_ms(run, 5) / F
+        ops_after, busy_after = _device_ops(run)
+        with _plain_stages():
+            before = _cuda_ms(run, 3) / F
+            ops_before, busy_before = _device_ops(run)
+        m["program"] = dict(
+            frames=F, ms_per_frame=after, ms_per_frame_plain_stages=before,
+            device_ops=ops_after, device_ops_plain_stages=ops_before,
+            device_busy_ms=busy_after,
+            device_busy_ms_plain_stages=busy_before)
+        out[name] = m
+        c, d = m["coef_mosaic"], m["dwt_lift"]
+        print(f"phase 11 {name} ({F} frame(s), {c['lanes']} lanes, "
+              f"{c['samples']} band samples, {d['levels']} levels, "
+              f"transform {prog.transform}): coef_mosaic == coef_mosaic_ref: kernel "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.2f} ms, bound "
+              f"{c['bound_ms']:.4f} ms (bytes), "
+              f"{100 * c['bound_ms'] / c['ms']:.1f}% of bound; dwt_lift "
+              f"== dwt_level_ref at every level ({d['launches_per_call']} "
+              f"launch pairs): kernel {d['ms']:.4f} ms, plain "
+              f"{d['plain_ms']:.2f} ms, bound {d['bound_ms']:.4f} ms "
+              f"(bytes, one pass; two passes {d['two_pass_bound_ms']:.4f}),"
+              f" {100 * d['bound_ms'] / d['ms']:.1f}% of bound (ms by level, "
+              f"lowest first: "
+              f"{', '.join(f'{x:.4f}' for x in d['ms_by_level'])}); V3Program "
+              f"{before:.3f} -> {after:.3f} ms/frame, device ops "
+              f"{ops_before:.0f} -> {ops_after:.0f} a call, device busy "
+              f"{busy_before:.3f} -> {busy_after:.3f} ms a call (plain "
+              f"stages forced -> kernels)")
+        del args
+    return out
+
+
 def _phase6(dev):
     """The c2 irreversible path; returns (the ict_writeframe entry of the
     kernels line without its launches, the HT cleanup kernels' check at
     this path's lanes, {path: (launch counts, frames)} of the float
-    decode_batch and of the integer decode_stream)."""
+    decode_batch and of the integer decode_stream, the four streams)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(2025)
     streams = _c2_streams(rng)
@@ -621,7 +826,7 @@ def _phase6(dev):
     batch_counts = _counts()
     want = {"ht_vlc_pass": 1, "ht_magsgn_pass": 1, "rct_writeframe": 0,
             "ict_writeframe": 1, **dict.fromkeys(_REFINE, 0),
-            "wire_pack": 0}
+            "wire_pack": 0, **_lift_want(dec_f, streams[0], len(streams))}
     if batch_counts != want:
         raise RuntimeError(f"decode_batch launches {batch_counts}, "
                            f"expected {want}")
@@ -642,7 +847,8 @@ def _phase6(dev):
     int_counts = _counts()
     want = {"ht_vlc_pass": len(streams), "ht_magsgn_pass": len(streams),
             "rct_writeframe": 0, "ict_writeframe": len(streams),
-            **dict.fromkeys(_REFINE, 0), "wire_pack": 0}
+            **dict.fromkeys(_REFINE, 0), "wire_pack": 0,
+            **_lift_want(dec_i, streams[0], 1, len(streams))}
     if dec_i.v3_frames != len(streams) or dec_i.host_frames \
             or int_counts != want:
         raise RuntimeError(f"decode_stream (bitexact): v3 frames "
@@ -691,7 +897,7 @@ def _phase6(dev):
                  modes=modes)
     paths = {"c2_decode_batch": (batch_counts, len(streams)),
              "c2_decode_stream_int": (int_counts, len(streams))}
-    return entry, c2, paths
+    return entry, c2, paths, streams
 
 
 def _c4_streams():
@@ -1045,6 +1251,10 @@ def _phase7(dev):
     on_path = ("ht_vlc_pass", "ht_magsgn_pass", *_REFINE)
     _need_launched(stream_counts, on_path, "c4 decode_stream")
     _need_launched(batch_counts, on_path, "c4 decode_batch")
+    if any(c[k] for c in (stream_counts, batch_counts) for k in _LIFT):
+        raise RuntimeError(f"c4: the v2 BucketProgram launched a v3 "
+                           f"coefficient kernel: {stream_counts}, "
+                           f"{batch_counts}")
     print(f"phase 7 decode_stream [A, B] and decode_batch [A, B, A, B]: "
           f"every frame == source ({frames[0].fmt.name}), all 6 via the "
           f"BucketProgram; launches {stream_counts} and {batch_counts}")
@@ -1202,7 +1412,8 @@ def _phase8(dev, natural_src, natural_stream):
         raise RuntimeError(f"c5: v3 frames {dec.v3_frames} and "
                            f"{plain_dec.v3_frames}, launches {batch_counts}, "
                            f"{stream_counts}, {plain_counts}")
-    on_path = ("ht_vlc_pass", "ht_magsgn_pass", "rct_writeframe", "wire_pack")
+    on_path = ("ht_vlc_pass", "ht_magsgn_pass", "rct_writeframe", "wire_pack",
+               *_LIFT)
     _need_launched(batch_counts, on_path, "c5 decode_batch")
     _need_launched(stream_counts, on_path, "c5 decode_stream")
     print(f"phase 8 decode_batch (one program, F={F}) and decode_stream with "
@@ -1361,7 +1572,8 @@ def _phase9(dev, c5_data, c4_data, single_ms):
             # (pads included), the pack once
             expect = {"ht_vlc_pass": D, "ht_magsgn_pass": D,
                       "rct_writeframe": D * Fl, "ict_writeframe": 0,
-                      **dict.fromkeys(_REFINE, 0), "wire_pack": D if wp else 0}
+                      **dict.fromkeys(_REFINE, 0), "wire_pack": D if wp else 0,
+                      **_lift_want(dec, streams[0], Fl, D)}
             if counts != expect or dec.v3_frames != F or dec.v2_frames \
                     or dec.host_frames:
                 raise RuntimeError(f"c5 over {D} shards (wire_pack={wp}): "
@@ -1755,9 +1967,11 @@ def _phase10(dev):
         if route != ROUTES[case.route]:
             problems.append(f"{case.name}: route (v3, v2, host) {route}, "
                             f"expected {ROUTES[case.route]}")
-        if got != _expected_counts(case.launches):
+        want = {**_expected_counts(case.launches),
+                **_lift_want(dec, data, 1)}
+        if got != want:
             problems.append(f"{case.name}: launches {got}, expected "
-                            f"{_expected_counts(case.launches)}")
+                            f"{want}")
     counts = _counts()
     for case, data, frame in zip(corpus, streams, frames):
         problems += [f"{case.name}: {p}"
@@ -1766,7 +1980,8 @@ def _phase10(dev):
     # the kernels against their plain versions on every device stream's
     # lanes (these launches are not the main path's)
     errs = dict.fromkeys(("vlc", "magsgn", "pair", "sigprop", "magref",
-                          "refine_pair", "rct", "ict", "wire_pack"), 0)
+                          "refine_pair", "rct", "ict", "wire_pack",
+                          *_LIFT), 0)
     lanes = collections.Counter()
     for case, data, dec in zip(corpus, streams, decoders):
         if not case.launches[0]:
@@ -1776,6 +1991,10 @@ def _phase10(dev):
             _kind, prog, args, segs = sl
             c = _cleanup_check(args, segs, prog.qw, prog.qh, prog.ms_class)
             lanes["v3"] += c["lanes"]["N"]
+            if prog.band_direct:
+                lanes["band-direct v3"] += c["lanes"]["N"]
+                for k, m in _lift_check(prog, args).items():
+                    errs[k] = max(errs[k], m["max_abs_err"])
             if case.launches[2]:
                 outs, _ok = prog.decode_planes(**args)
                 errs["rct"] = max(errs["rct"],
@@ -1832,7 +2051,8 @@ def _phase10(dev):
     host = [host_decoder.decode_frame(d, bitexact=True).tobytes()
             for d in batch]
     if got != singles or got != host or dec.v3_frames != 3 \
-            or batch_counts != _expected_counts((1, 0, 0, 0, 0)) \
+            or batch_counts != {**_expected_counts((1, 0, 0, 0, 0)),
+                                **prog.kernel_launches()} \
             or not inert:
         problems.append(f"batch of 3: equal to the singles "
                         f"{got == singles}, to the host oracle "
@@ -1986,10 +2206,13 @@ def main(argv=None) -> int:
     if dec.v3_frames != len(order) or dec.host_frames:
         raise RuntimeError(f"v3 frames {dec.v3_frames}, host frames "
                            f"{dec.host_frames}")
-    if any(n != (0 if k in ("ict_writeframe", *_REFINE, "wire_pack")
-                 else len(order)) for k, n in launches.items()):
-        raise RuntimeError(f"launches {launches}, expected one per frame "
-                           f"({len(order)}), no ICT and no refinement")
+    want = {k: 0 if k in ("ict_writeframe", *_REFINE, "wire_pack")
+            else len(order) for k in _KERNELS}
+    want.update(_lift_want(dec, streams["natural"], 1, len(order)))
+    if launches != want:
+        raise RuntimeError(f"launches {launches}, expected {want}: the "
+                           "cleanup pair, RCT and coef_mosaic once a "
+                           "frame, dwt_lift once a level of a frame")
     times = []
     for _ in range(REPS):
         torch.cuda.synchronize()
@@ -2009,7 +2232,7 @@ def main(argv=None) -> int:
           + _laps(dec, [streams["natural"]], True, dev))
 
     # ---- phase 6: the c2 irreversible path
-    ict_entry, c2, c2_paths = _phase6(dev)
+    ict_entry, c2, c2_paths, c2_streams = _phase6(dev)
 
     # ---- phase 7: BASELINE config 4 (a crop), the v2 bucketed path
     refine_entries, c4, c4_paths, c4_data = _phase7(dev)
@@ -2024,7 +2247,11 @@ def main(argv=None) -> int:
 
     # ---- phase 10: the conformance corpus on the card
     c10, c10_paths = _phase10(dev)
-    c10_errs = {"ht_vlc_pass": c10["vlc"],
+    # ---- phase 11: the coefficient stages' kernels on c3 and c2
+    c11 = _phase11(dev, streams["natural"], c2_streams)
+
+    c10_errs = {"coef_mosaic": c10["coef_mosaic"],
+                "dwt_lift": c10["dwt_lift"], "ht_vlc_pass": c10["vlc"],
                 "ht_magsgn_pass": max(c10["magsgn"], c10["pair"]),
                 "rct_writeframe": c10["rct"], "ict_writeframe": c10["ict"],
                 "ht_sigprop_pass": c10["sigprop"],
@@ -2053,11 +2280,22 @@ def main(argv=None) -> int:
         ict_entry,
         *refine_entries,
         wire_entry,
+        *[dict(name=k, route="cuda",
+               source=f"ffmpeg_ht_tpu_torch/csrc/{k}.cu", replaces=where,
+               **c11["c3"][k],
+               c2_decode_batch_shapes=c11["c2_float"][k],
+               c2_decode_stream_int_shapes=c11["c2_int"][k],
+               v3_program={c: c11[c]["program"] for c in c11})
+          for k, where in (
+              ("coef_mosaic", "ffmpeg_ht_tpu/models/assembly.py:326"),
+              ("dwt_lift", "ffmpeg_ht_tpu/ops/dwt_jax.py:330"))],
     ]
     # every path's run is read between a reset and the next; `launches`
     # is the count on the kernel's main path, the path whose shapes its
     # ms and bound_ms were measured at: c3 decode_stream (phase 5) for the
-    # kernels of the 5/3 slice, c2 decode_batch (phase 6) for ICT, c4
+    # kernels of the 5/3 slice and the coefficient stages' (phase 11
+    # measures them on that path's program), c2 decode_batch (phase 6) for
+    # ICT, c4
     # decode_batch (phase 7) for the two refinement kernels, c5
     # decode_batch (phase 8) for the wire pack
     paths = {"c3_decode_stream": (launches, len(order)), **c2_paths,
@@ -2073,11 +2311,13 @@ def main(argv=None) -> int:
         k["c10_conformance"] = dict(max_abs_err=c10_errs[k["name"]])
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             k.get(s, {}).get("max_abs_err", 0)
-            for s in ("c2_decode_batch_shapes", "c4_decode_batch_buckets",
-                      "c5_shard_lanes", "c10_conformance")])
+            for s in ("c2_decode_batch_shapes", "c2_decode_stream_int_shapes",
+                      "c4_decode_batch_buckets", "c5_shard_lanes",
+                      "c10_conformance")])
         # no single PyTorch call computes an HT cleanup pass, SigProp /
-        # MagRef, RCT or ICT with DC shift, clip and the narrow pack, nor
-        # the 32-sample-group bit pack
+        # MagRef, RCT or ICT with DC shift, clip and the narrow pack, the
+        # 32-sample-group bit pack, the dequant + prefill + band mosaic,
+        # nor a lifting level of the JPEG 2000 inverse DWT
         k.update(main_path=main_path, launches=n[main_path],
                  launches_per_frame=per_frame[main_path],
                  launches_by_path=n, launches_per_frame_by_path=per_frame,

@@ -9,13 +9,12 @@ program (counterpart of ``_entropy_stage`` + ``_compiled_assembly`` of
   2. dequant of the mu words (jpeg2000dec.c:2098-2181): reversible (5/3),
      integer 9/7 (Q16 ``scale97``, int64 products) or float 9/7
      (``fscale``, float32 lane rasters);
-  3. the sparse prefill scatter of host-decoded lanes, into a flat buffer
-     with one trailing trash slot that the pad entries address;
-  4. the band mosaics: slice/reshape/permute/cat of the lane rasters
+  3. the sparse prefill scatter of host-decoded lanes;
+  4. the band mosaics: every subband cut out of the lane rasters
      (``AssemblyPlan`` from ``build_plan`` below);
-  5. the inverse DWT (ops/dwt_torch): band-direct when every level of
-     every plane is at least 8x8, else the quadrant pyramid is composed
-     (``_compose_plane``) and takes the flat fallback;
+  5. the inverse DWT: band-direct when every level of every plane is at
+     least 8x8, else the quadrant pyramid is composed (``_compose_plane``)
+     and takes the flat fallback (ops/dwt_torch);
   6. RCT (5/3, a launch per frame) or ICT (9/7, one launch for the F
      frames) + DC shift + clip written straight into the packed output
      (ops/mct_cuda), or ``rint`` (float) + DC shift + clip for planes
@@ -26,6 +25,15 @@ program (counterpart of ``_entropy_stage`` + ``_compiled_assembly`` of
      bits, followed by the flag as one word (ops/wirepack, the kernel
      ``csrc/wire_pack.cu``), as the reference's ``wire_pack`` option
      does (assembly.py:436-441, decoder.py:595-601).
+
+On the band-direct route, stages 2-4 are one call of
+``ops/coef_cuda.coef_mosaic`` for the F frames (the kernel
+``csrc/coef_mosaic.cu`` on the card) into one band buffer laid out by a
+``CoefLayout`` built once per program, and stage 5 is one call of
+``ops/dwt_cuda.dwt_lift`` a level for every plane of every frame (the
+kernel ``csrc/dwt_lift.cu``); CPU tensors take their plain versions, the
+torch ops of ops/coef_cuda and ops/dwt_torch. The flat fallback runs
+stages 2-5 as torch ops on either device.
 
 ``BucketProgram`` runs the cleanup per bucket of same-shape codeblocks
 (plus SigProp / MagRef, ops/ht_refine, on refined buckets), the same
@@ -48,8 +56,10 @@ from typing import Optional, Tuple
 import torch
 
 from ffmpeg_ht_tpu_torch.codestream import markers as mk
-from ffmpeg_ht_tpu_torch.ops.dwt_torch import (dwt_decode_bands,
-                                               dwt_decode_flat,
+from ffmpeg_ht_tpu_torch.ops import coef_cuda, dwt_cuda
+from ffmpeg_ht_tpu_torch.ops.coef_cuda import CoefLayout
+from ffmpeg_ht_tpu_torch.ops.dwt import dwt_levels
+from ffmpeg_ht_tpu_torch.ops.dwt_torch import (dwt_decode_flat,
                                                dwt_poly_capable)
 from ffmpeg_ht_tpu_torch.ops.ht_refine import decode_refinement_scan
 from ffmpeg_ht_tpu_torch.ops.ht_scan import (decode_cleanup_scan_dims,
@@ -216,34 +226,16 @@ def build_plan(fg) -> Optional[AssemblyPlan]:
                         bh=bh, bw=bw)
 
 
-def _mosaic_band(ras, bp: BandPlan, lane_off: int):
-    """One subband from the lane rasters (assembly.py:200-221)."""
-    if bp.bw == 0 or bp.bh == 0 or not bp.rows:
-        return ras.new_zeros((bp.bh, bp.bw))
-    row_rects = []
-    for row in bp.rows:
-        rects = []
-        for pp in row:
-            lo = lane_off + pp.l0
-            sub = ras[lo:lo + pp.ch * pp.cw, :pp.blk_h, :pp.blk_w]
-            g = sub.reshape(pp.ch, pp.cw, pp.blk_h, pp.blk_w) \
-                .permute(0, 2, 1, 3) \
-                .reshape(pp.ch * pp.blk_h, pp.cw * pp.blk_w)
-            rects.append(g[:pp.ph, :pp.pw])
-        row_rects.append(rects[0] if len(rects) == 1
-                         else torch.cat(rects, 1))
-    return row_rects[0] if len(row_rects) == 1 else torch.cat(row_rects, 0)
-
-
 def _compose_plane(ras, plane: PlanePlan, lane_off: int):
     """The quadrant pyramid of one plane from its band mosaics
     (assembly.py:224-236), for the flat-DWT fallback."""
+    mosaic = coef_cuda.mosaic_band
     ll, lvls = plane.levels
-    p = _mosaic_band(ras, ll, lane_off)
+    p = mosaic(ras, ll, lane_off)
     for (hl, lhb, hh) in lvls:
-        top = torch.cat([p, _mosaic_band(ras, hl, lane_off)], 1)
-        bot = torch.cat([_mosaic_band(ras, lhb, lane_off),
-                         _mosaic_band(ras, hh, lane_off)], 1)
+        top = torch.cat([p, mosaic(ras, hl, lane_off)], 1)
+        bot = torch.cat([mosaic(ras, lhb, lane_off),
+                         mosaic(ras, hh, lane_off)], 1)
         p = torch.cat([top, bot], 0)
     return p
 
@@ -268,29 +260,6 @@ class _Program:
         self.cbps, self.total, self.transform = cbps, total, transform
         self.frames, self.no_istep = frames, no_istep
         self.out_dtype = torch.uint8 if cbps <= 8 else torch.int16
-
-    def _dequant(self, mu, magb, istep, scale97, fscale):
-        """Lane rasters of coefficients from the int32 bits of the uint32
-        mu words (bit 31 sign), as assembly.py:327-349 computes them."""
-        neg = mu < 0
-        mag = mu & 0x7FFFFFFF
-        if self.transform == mk.DWT97:
-            return torch.where(neg, -mag, mag).to(torch.float32) \
-                * fscale[:, None, None]
-        if self.transform == mk.DWT97_INT:
-            m = torch.where(neg, -mag, mag)
-            m = ((m + 32) >> 6).to(torch.int64)
-            prod = m * scale97[:, None, None].to(torch.int64)
-            coef = torch.where(prod > 0, (prod + (1 << 15)) >> 16,
-                               (prod + (1 << 15) - 1) >> 16)
-            return coef.to(torch.int32)
-        # reversible: every step stays non-negative int32
-        m = mag >> (31 - magb)[:, None, None]
-        coef = torch.where(neg, -m, m)
-        if not self.no_istep:
-            st = istep[:, None, None]
-            coef = torch.where(st != 32768, (coef * st) >> 16, coef)
-        return coef
 
     def pack(self, outs, ok):
         """Stages 6-7: MCT / DC shift / clip into the packed buffer. Plane
@@ -360,6 +329,52 @@ class V3Program(_Program):
         self.plan = plan
         self.qw, self.qh, self.ms_class = qw, qh, ms_class
         self.n_pad = n_pad
+        if self.band_direct:
+            self._band_schedule()
+
+    def _band_schedule(self):
+        """The band buffer's layout (every band of every plane of every
+        frame: LL, then HL, LH, HH level by level) and, per (frame,
+        plane), the indices of its LL and of each level's bands and the
+        levels' origin parities."""
+        bands, self._ll, self._lvls, self._mods = [], [], [], []
+        for f in range(self.frames):
+            for plane_p, border, ndec in zip(self.plan.planes, self.borders,
+                                             self.ndecs):
+                ll, lvls = plane_p.levels
+                self._ll.append(len(bands))
+                bands.append((ll, f * self.n_pad))
+                idx = []
+                for lvl in lvls:
+                    idx.append(tuple(range(len(bands), len(bands) + 3)))
+                    bands.extend((bb, f * self.n_pad) for bb in lvl)
+                self._lvls.append(idx)
+                b = [[border[0][0], border[0][1]],
+                     [border[1][0], border[1][1]]]
+                self._mods.append(dwt_levels(b, ndec)[1])
+        self.layout = CoefLayout(bands, self.frames * self.n_pad,
+                                 self.plan.bh, self.plan.bw)
+        self.levels = max(map(len, self._lvls))
+
+    def level_jobs(self, lev: int, outs, bands):
+        """(the planes that have level `lev`, their ``dwt_lift`` jobs),
+        from every plane's current LL `outs` and the band views `bands`;
+        the integer 9/7's final shift rides on each plane's last level."""
+        todo = [i for i, idx in enumerate(self._lvls) if lev < len(idx)]
+        return todo, [(outs[i], *(bands[b] for b in self._lvls[i][lev]),
+                       *self._mods[i][lev],
+                       self.transform == mk.DWT97_INT
+                       and lev == len(self._lvls[i]) - 1) for i in todo]
+
+    def kernel_launches(self):
+        """{counter: launches} one call of the program adds to the
+        ``coef_mosaic`` and ``dwt_lift`` counters on the card."""
+        if not self.band_direct:
+            return {"coef_mosaic": 0, "dwt_lift": 0}
+        jobs = [sum(lev < len(idx) for idx in self._lvls)
+                for lev in range(self.levels)]
+        return {"coef_mosaic": 1,
+                "dwt_lift": sum(-(-n // 32) for n in jobs)}
 
     def __call__(self, **args):
         return self.pack(*self.decode_planes(**args))
@@ -373,37 +388,39 @@ class V3Program(_Program):
             msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
             self.qw, self.qh, self.ms_class)
 
-        coef = self._dequant(mu, magb, istep, scale97, fscale)
-
-        # host-decoded lanes: scatter into the lane rasters; pad entries
-        # address the trailing trash slot, which is sliced off
-        flat = torch.cat([coef.reshape(-1), coef.new_zeros(1)])
-        flat[pf_idx.long()] = pf_val.to(flat.dtype)
-        coef = flat[:-1].view(coef.shape)
-
+        if self.band_direct:
+            return self._band_direct(mu, magb, istep, scale97, fscale,
+                                     pf_idx, pf_val), ok
+        coef = coef_cuda.prefill(coef_cuda.dequant(
+            mu, magb, istep, scale97, fscale, self.transform, self.no_istep),
+            pf_idx, pf_val)
         outs = []
         for f in range(self.frames):
-            off = f * self.n_pad
             for plane_p, border, ndec in zip(self.plan.planes, self.borders,
                                              self.ndecs):
-                b = [[border[0][0], border[0][1]],
-                     [border[1][0], border[1][1]]]
-                if not self.band_direct:
-                    plane = _compose_plane(coef, plane_p, off)
-                    if ndec > 0:
-                        plane = dwt_decode_flat(plane, b, ndec,
-                                                self.transform)
-                    outs.append(plane)
-                    continue
-                ll, lvls = plane_p.levels
-                plane = _mosaic_band(coef, ll, off)
+                plane = _compose_plane(coef, plane_p, f * self.n_pad)
                 if ndec > 0:
-                    bands = [tuple(_mosaic_band(coef, bb, off) for bb in lvl)
-                             for lvl in lvls]
-                    plane = dwt_decode_bands(plane, bands, b, ndec,
-                                             self.transform)
+                    b = [[border[0][0], border[0][1]],
+                         [border[1][0], border[1][1]]]
+                    plane = dwt_decode_flat(plane, b, ndec, self.transform)
                 outs.append(plane)
         return outs, ok
+
+    def _band_direct(self, mu, magb, istep, scale97, fscale, pf_idx,
+                     pf_val):
+        """Stages 2-5 on the band-direct route: every band of the F
+        frames in one ``coef_mosaic`` call, then one ``dwt_lift`` call a
+        level for every plane that has it (the integer 9/7's final shift
+        on each plane's last level)."""
+        bands = self.layout.views(coef_cuda.coef_mosaic(
+            mu, magb, istep, scale97, fscale, pf_idx, pf_val, self.layout,
+            self.transform, self.no_istep))
+        outs = [bands[i] for i in self._ll]
+        for lev in range(self.levels):
+            todo, jobs = self.level_jobs(lev, outs, bands)
+            for i, p in zip(todo, dwt_cuda.dwt_lift(jobs, self.transform)):
+                outs[i] = p
+        return outs
 
 
 class BucketProgram(_Program):
@@ -456,8 +473,9 @@ class BucketProgram(_Program):
         flat[pf_idx.long()] = pf_val.to(dt)
         for (qw, qh, w, h, _msc, _r), mu, a in zip(self.shapes, mus,
                                                    bucket_args):
-            coef = self._dequant(mu, a["magb"], a["istep"], a["scale97"],
-                                 a["fscale"])
+            coef = coef_cuda.dequant(mu, a["magb"], a["istep"],
+                                     a["scale97"], a["fscale"],
+                                     self.transform, self.no_istep)
             y = torch.arange(2 * qh, device=mu.device)[None, :, None]
             x = torch.arange(2 * qw, device=mu.device)[None, None, :]
             base = a["dest"].long()[:, None, None]

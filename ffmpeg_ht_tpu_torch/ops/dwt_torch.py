@@ -303,6 +303,25 @@ def dwt_poly_capable(border, ndeclevels: int) -> bool:
                for lev in range(ndeclevels))
 
 
+def dwt_level_ref(ll, hl, lhb, hh, mh: int, mv: int, dwt_type: int,
+                  preshift: bool = False):
+    """One band-direct level: the next LL (lv, lh) from the previous LL
+    (nLv, nLh) and the level's HL (nLv, nHh), LH (nHv, nLh) and HH (nHv,
+    nHh), with origin parities mh, mv (``dwt_levels``' mod). Rows first
+    (LL | HL, then LH | HH), then columns; with `preshift` the integer
+    9/7's final rounding shift after it. The plain version of the kernel
+    ``csrc/dwt_lift.cu`` (ops/dwt_cuda.dwt_lift)."""
+    sr_poly = _POLY_SR[dwt_type]
+    lh, lv = ll.shape[1] + hl.shape[1], ll.shape[0] + lhb.shape[0]
+    E, O = sr_poly(ll, hl, mh, mh + lh, axis=1)
+    top = _poly_interleave(E, O, mh, mh + lh, axis=1)
+    E, O = sr_poly(lhb, hh, mh, mh + lh, axis=1)
+    bot = _poly_interleave(E, O, mh, mh + lh, axis=1)
+    E, O = sr_poly(top, bot, mv, mv + lv, axis=0)
+    p = _poly_interleave(E, O, mv, mv + lv, axis=0)
+    return _preshift(p) if preshift else p
+
+
 def dwt_decode_bands(ll, levels, border, ndeclevels: int, dwt_type: int):
     """Multi-level inverse DWT from subband arrays (polyphase path only).
 
@@ -312,21 +331,11 @@ def dwt_decode_bands(ll, levels, border, ndeclevels: int, dwt_type: int):
     if not dwt_poly_capable(border, ndeclevels):
         raise ValueError(f"border {border} with {ndeclevels} levels has a "
                          "level below 8x8: use dwt_decode_flat")
-    sr_poly = _POLY_SR[dwt_type]
-    linelen, mod = dwt_levels(border, ndeclevels)
+    _linelen, mod = dwt_levels(border, ndeclevels)
     p = ll
     for lev in range(ndeclevels):
-        lh, lv = linelen[lev]
-        mh, mv = mod[lev]
-        hl, lhb, hh = levels[lev]
-        E, O = sr_poly(p, hl, mh, mh + lh, axis=1)
-        top = _poly_interleave(E, O, mh, mh + lh, axis=1)
-        E, O = sr_poly(lhb, hh, mh, mh + lh, axis=1)
-        bot = _poly_interleave(E, O, mh, mh + lh, axis=1)
-        E, O = sr_poly(top, bot, mv, mv + lv, axis=0)
-        p = _poly_interleave(E, O, mv, mv + lv, axis=0)
-    if dwt_type == DWT97_INT:
-        p = _preshift(p)
+        p = dwt_level_ref(p, *levels[lev], *mod[lev], dwt_type,
+                          dwt_type == DWT97_INT and lev == ndeclevels - 1)
     return p
 
 

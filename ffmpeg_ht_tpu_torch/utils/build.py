@@ -63,6 +63,16 @@ _SIGNATURES = {
                               _P, _P],                   # out, stream
     "wire_pack_launch": [_P, _I64, _I, _P, _P],          # in, n, depth,
                                                          # out, stream
+    "coef_mosaic_launch": [_P, _P, _P, _P, _P, _P,       # mu, map, magb,
+                                                         # istep, s97, fs
+                           _I64, _I, _I, _I, _I,         # N, bh, bw, mode,
+                                                         # no_istep
+                           _P, _P, _I64, _P, _P],        # pf_idx, pf_val,
+                                                         # n_pf, out, stream
+    "dwt_lift_launch": [_P, _P, _P, _P, _P,              # ll, hl, lh, hh,
+                                                         # out (arrays)
+                        _P, _I, _I, _P],                 # dims, jobs, mode,
+                                                         # stream
 }
 
 

@@ -27,7 +27,16 @@ writes the ok flag word after the words; at the edges of its 8192-sample
 tile (one short, one tile, one more, several tiles and a ragged tail),
 at n = 0 (the flag word alone), on a grid of more tiles than the card
 holds at once, and from every start offset of 1-7 samples (the scalar
-path). With two cards or more: every kernel on the second card's tensors
+path). ``coef_mosaic`` (dequant + prefill + band mosaic of a V3Program's
+lanes) matches ``coef_mosaic_ref`` bit for bit in all three transforms on
+a c3 plan and on plans whose codeblocks precincts cut and crop, from
+random mu words, lane vectors (shifts past 31, wrapping steps) and
+prefill entries with pads; ``dwt_lift`` matches ``dwt_level_ref`` bit
+for bit in all three transforms on odd origins, the 8x8 minimum, c3's
+and c2's top levels, more jobs than one launch takes and levels too tall
+for a 32-column strip; a V3Program on the card gives the CPU decoder's
+bytes with every plain stage made to raise. With two cards or more:
+every kernel on the second card's tensors
 while the first is current (the wrappers' launch guard), and
 ``decode_batch(devices=<every card>)`` against one card.
 """
@@ -36,8 +45,9 @@ import numpy as np
 import pytest
 import torch
 
-from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
-from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
+from ffmpeg_ht_tpu_torch.ops import (coef_cuda, dwt_cuda, dwt_torch, ht_refine,
+                                     ht_scan, mct_cuda, wirepack)
+from ffmpeg_ht_tpu_torch.ops.dwt import DWT53, DWT97, DWT97_INT, dwt_levels
 from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_magref_stream,
                                               prepare_sigprop_stream,
                                               prepare_streams_batch,
@@ -621,3 +631,171 @@ def test_decode_batch_over_the_cards(second_card):
     res = Decoder(second_card).bench_resident(streams, n_it=2, reps=1)
     assert res["frames_merged"] == 5 and res["fps"] > 0
     assert torch.cuda.current_device() == 0
+
+
+# ---- the v3 program's coefficient stages: coef_mosaic and dwt_lift ----
+
+# (image shape, encoder options): a DCI-4K 4:4:4 frame of c3's geometry
+# (64x64 codeblocks, 6 levels; zeros encode in seconds and the plan does
+# not depend on the content) and two whose codeblocks precincts cut and
+# crop
+COEF_GEOMS = {
+    "c3": ((2160, 4096, 3), dict(depth=10, tile_width=4096, tile_height=4096,
+                                 log2_cblk_width=6, log2_cblk_height=6,
+                                 mct=True)),
+    "prec-gray-32": ((90, 118), dict(nreslevels=3, log2_cblk_width=5,
+                                     log2_cblk_height=5, log2_prec_width=6)),
+    "prec-rgb-16": ((75, 101, 3), dict(nreslevels=3, log2_cblk_width=4,
+                                       log2_cblk_height=4, log2_prec_width=6,
+                                       mct=True)),
+}
+TRANSFORMS = {"53": DWT53, "int": DWT97_INT, "float": DWT97}
+
+
+def _coef_program(geom, transform, frames, n_extra):
+    from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
+    from ffmpeg_ht_tpu_torch.models import assembly
+    from ffmpeg_ht_tpu_torch.models import fastpath
+    from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
+
+    shape, opts = COEF_GEOMS[geom]
+    data = encode_frame_htj2k(np.zeros(shape, np.uint16 if "depth" in opts
+                                       else np.uint8), **opts)
+    fg = fastpath.FlatGeometry(parse_codestream(data, bitexact=True))
+    plan = assembly.build_plan(fg)
+    return assembly.V3Program(plan, fg.geom.key()[:-1] + (transform,),
+                              qw=plan.bw // 2, qh=plan.bh // 2, ms_class=8,
+                              n_pad=plan.n_lanes + n_extra, frames=frames)
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+@pytest.mark.parametrize("geom", list(COEF_GEOMS))
+def test_coef_mosaic_kernel_matches_ref(cuda, geom, tname):
+    """Random mu words and lane vectors (magb past 31, istep wrapping
+    int32, pad lanes), prefill entries with pads; kernel == plain version
+    bit for bit, with and without the identity step."""
+    transform = TRANSFORMS[tname]
+    prog = _coef_program(geom, transform, 2 if geom != "c3" else 1, 5)
+    lay = prog.layout
+    N, bh, bw = lay.n_lanes, lay.bh, lay.bw
+    rng = np.random.default_rng(len(geom) * 3 + len(tname))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    mu = t(rng.integers(0, 1 << 32, (N, bh, bw), dtype=np.uint64)
+           .astype(np.uint32).view(np.int32))
+    magb = t(rng.integers(1, 40, N).astype(np.int32))
+    istep = t(np.where(rng.random(N) < 0.5, 32768,
+                       rng.integers(1, 70000, N)).astype(np.int32))
+    s97 = t(rng.integers(0, 1 << 20, N).astype(np.int32))
+    fs = t(rng.uniform(0, 1e-3, N).astype(np.float32))
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    n_pf = 4096
+    idx = rng.choice(N * bh * bw, n_pf - 4, replace=False)
+    pf_idx = t(np.concatenate([idx, [N * bh * bw] * 4]).astype(np.int32))
+    pf_val = t(rng.integers(-5000, 5000, n_pf)).to(dt)
+    for no_istep in (False, True):
+        args = (mu, magb, istep, s97, fs, pf_idx, pf_val, lay, transform,
+                no_istep)
+        before = coef_cuda.coef_mosaic.launches
+        got = coef_cuda.coef_mosaic(*args)
+        torch.cuda.synchronize()
+        assert coef_cuda.coef_mosaic.launches == before + 1
+        assert _same_bits(got, coef_cuda.coef_mosaic_ref(*args))
+
+
+def _lift_jobs(rng, cases, transform, cuda):
+    """One job per (border, ndec, level): random bands of that level."""
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    jobs = []
+    for border, ndec, lev in cases:
+        linelen, mod = dwt_levels(border, ndec)
+        (lh, lv), (mh, mv) = linelen[lev], mod[lev]
+        nlh, nlv = len(range(mh, lh, 2)), len(range(mv, lv, 2))
+        r = lambda s: torch.from_numpy(
+            rng.integers(-4000, 4000, s)).to(dt).to(cuda)
+        jobs.append((r((nlv, nlh)), r((nlv, lh - nlh)), r((lv - nlv, nlh)),
+                     r((lv - nlv, lh - nlh)), mh, mv,
+                     transform == DWT97_INT and lev == ndec - 1))
+    return jobs
+
+
+LIFT_GEOMS = {
+    # odd origins on both axes, the 8x8 minimum, odd ends
+    "odd": [([[1, 41], [3, 43]], 3, lev) for lev in range(3)]
+    + [([[0, 32], [0, 32]], 3, 0), ([[3, 70], [0, 37]], 2, 1),
+       ([[5, 90], [7, 29]], 2, 0), ([[2, 300], [1, 9]], 1, 0)],
+    # a c3 plane's top level, and the three planes of a c2 frame
+    "c3": [([[0, 4096], [0, 2160]], 6, 5)],
+    "c2": [([[0, 1920], [0, 1080]], 5, 4)] * 3,
+    # more jobs than one launch pair takes, and a level too tall for a
+    # 32-column strip
+    "many": [([[1, 41], [3, 43]], 3, 2)] * 40,
+    "tall": [([[0, 20], [1, 5001]], 1, 0), ([[1, 66], [0, 1500]], 1, 0)],
+}
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+@pytest.mark.parametrize("case", list(LIFT_GEOMS))
+def test_dwt_lift_kernel_matches_ref(cuda, case, tname):
+    transform = TRANSFORMS[tname]
+    rng = np.random.default_rng(len(case) * 5 + len(tname))
+    jobs = _lift_jobs(rng, LIFT_GEOMS[case], transform, cuda)
+    before = dwt_cuda.dwt_lift.launches
+    got = dwt_cuda.dwt_lift(jobs, transform)
+    torch.cuda.synchronize()
+    assert dwt_cuda.dwt_lift.launches == before + -(-len(jobs) // 32)
+    for g, j in zip(got, jobs):
+        assert _same_bits(g, dwt_torch.dwt_level_ref(*j[:6], transform,
+                                                     j[6]))
+
+
+def test_dwt_lift_kernel_rejects_bad_args(cuda):
+    z = lambda h, w: torch.zeros((h, w), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dwt_decode_flat"):
+        dwt_cuda.dwt_lift([(z(4, 4), z(4, 3), z(3, 4), z(3, 3), 0, 0,
+                            False)], DWT53)
+    with pytest.raises(ValueError, match="expected cuda"):
+        dwt_cuda.dwt_lift([(z(8, 8), z(8, 8).cpu(), z(8, 8), z(8, 8), 0, 0,
+                            False)], DWT53)
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_v3_program_on_the_card_runs_no_plain_stage(cuda, tname,
+                                                   monkeypatch):
+    """A V3Program on CUDA tensors launches coef_mosaic once and dwt_lift
+    once a level, and reaches neither the dequant, the prefill, the
+    mosaics nor the torch lifting (each made to raise), giving the CPU
+    decoder's bytes."""
+    from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+    from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
+
+    img = np.random.default_rng(12).integers(0, 256, (96, 128, 3),
+                                             dtype=np.uint8)
+    data = encode_frame_htj2k(img, pred=int(tname == "53"), mct=True,
+                              nreslevels=3, log2_cblk_width=5,
+                              log2_cblk_height=5)
+    bitexact = tname != "float"
+    want = Decoder(device="cpu", bitexact=bitexact).decode(data).tobytes()
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain stage ran on the card")
+    for mod, name in ((coef_cuda, "coef_mosaic_ref"), (coef_cuda, "dequant"),
+                      (coef_cuda, "prefill"), (coef_cuda, "mosaic_band"),
+                      (dwt_torch, "dwt_level_ref"),
+                      (dwt_torch, "dwt_decode_bands"),
+                      (dwt_torch, "dwt_decode_flat")):
+        monkeypatch.setattr(mod, name, refuse)
+    for k in list(dwt_torch._POLY_SR):
+        monkeypatch.setitem(dwt_torch._POLY_SR, k, refuse)
+    dec = Decoder(device=cuda, bitexact=bitexact)
+    before = (coef_cuda.coef_mosaic.launches, dwt_cuda.dwt_lift.launches)
+    got = dec.decode(data).tobytes()
+    assert dec.v3_frames == 1
+    assert (coef_cuda.coef_mosaic.launches - before[0],
+            dwt_cuda.dwt_lift.launches - before[1]) == (1, 2)
+    assert got == want

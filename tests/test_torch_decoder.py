@@ -26,7 +26,7 @@ from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k, encode_frame_t800
 from ffmpeg_ht_tpu.ops.dwt import DWT97_INT
 from ffmpeg_ht_tpu_torch.models import fastpath as port_fp
-from ffmpeg_ht_tpu_torch.models.assembly import V3Program
+from ffmpeg_ht_tpu_torch.models.assembly import V3Program, build_plan
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
@@ -92,10 +92,18 @@ def test_decode_stream_and_async(dec):
 
 
 def _v3_frame(data, bitexact=True):
+    """(a FlatGeometry of this test's own, the stream's v3 lane columns):
+    the JAX Decoder's geometry cache is one per process, shared with
+    every test file that runs in the same worker."""
     hdr = parse_codestream(data, bitexact=bitexact)
-    fg = JaxDecoder._fast_geom(hdr)
+    fg = FP.FlatGeometry(hdr)
     fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
     return fg, fc
+
+
+def _ms_class(fc):
+    mb = int(fc["maxbp"][fc["qws"] > 0].max())
+    return next(c for c in (8, 12, 16, 20, 25) if mb <= c)
 
 
 @pytest.fixture(scope="module")
@@ -141,7 +149,10 @@ def test_prefill_scatter_matches_jax(jax_dec):
     data = STREAMS["gray8"]
     jax_dec.decode(data)                      # builds + caches the program
     fg, fc = _v3_frame(data)
-    (jprog,) = fg.v3_progs.values()
+    # the program jax_dec built: its key is (frames, ms_class, no_istep,
+    # wire_pack); other tests in this process may have cached others
+    jprog = JaxDecoder._fast_geom(parse_codestream(data, bitexact=True)) \
+        .v3_progs[(1, _ms_class(fc), True, False)]
     args, F = FP.finish_v3(fg, [fc], fg.geom.total)
     bh, bw = FP.lane_raster_dims(fg)
     span = fg.ncblks * bh * bw
@@ -155,11 +166,11 @@ def test_prefill_scatter_matches_jax(jax_dec):
     want = np.asarray(jprog(**args))
     np_args, _ = port_fp.finish_v3_numpy(fg, [fc], fg.geom.total)
     np_args["pf_idx"], np_args["pf_val"] = pf_idx, pf_val
-    mb = int(fc["maxbp"][fc["qws"] > 0].max())
-    prog = V3Program(fg.v3_plan, fg.geom.key(), qw=bw // 2, qh=bh // 2,
-                     ms_class=next(c for c in (8, 12, 16, 20, 25)
-                                   if mb <= c),
-                     n_pad=fg.ncblks, frames=1, no_istep=True)
+    plan = build_plan(port_fp.FlatGeometry(parse_codestream(
+        data, bitexact=True)))
+    prog = V3Program(plan, fg.geom.key(), qw=bw // 2, qh=bh // 2,
+                     ms_class=_ms_class(fc), n_pad=fg.ncblks, frames=1,
+                     no_istep=True)
     got = prog(**{k: port_fp.to_torch(v, "cpu") for k, v in np_args.items()})
     assert got.dtype == torch.uint8 and got[-1] == 1
     assert np.array_equal(got.numpy(), want)
@@ -177,7 +188,7 @@ def test_u_bound_violation_raises_invalid_data(dec):
     fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
     args, _ = port_fp.finish_v3(fg, [fc], fg.geom.total, "cpu")
     args["maxbp"][:] = 1
-    (prog,) = fg.v3_progs.values()
+    prog = fg.v3_progs[(1, _ms_class(fc), True, False)]
     packed = prog(**args)
     assert packed[-1] == 0
     with pytest.raises(InvalidData):

@@ -18,7 +18,8 @@ import inspect
 import pytest
 import torch
 
-from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
+from ffmpeg_ht_tpu_torch.ops import (coef_cuda, dwt_cuda, ht_refine, ht_scan,
+                                     mct_cuda, wirepack)
 from ffmpeg_ht_tpu_torch.utils import build
 
 WRAPPERS = {
@@ -29,6 +30,8 @@ WRAPPERS = {
     "rct_writeframe": mct_cuda.rct_writeframe,
     "ict_writeframe": mct_cuda.ict_writeframe,
     "wire_pack": wirepack.pack_words,
+    "coef_mosaic": coef_cuda.coef_mosaic,
+    "dwt_lift": dwt_cuda.dwt_lift,
 }
 
 
@@ -122,6 +125,12 @@ def test_device_check_still_raises(name, monkeypatch):
             [(meta(4, 4), meta(4, 4), meta(4, 4))], 8, mct_cuda.DWT97_INT),
         "wire_pack": lambda: wirepack.pack_words(meta(33, dtype=torch.int16),
                                                  10),
+        "coef_mosaic": lambda: coef_cuda.coef_mosaic(
+            meta(4, 2, 2), v, v, v, meta(4, dtype=torch.float32), v, v,
+            coef_cuda.CoefLayout([], 4, 2, 2), mct_cuda.DWT97_INT, False),
+        "dwt_lift": lambda: dwt_cuda.dwt_lift(
+            [(meta(4, 4), meta(4, 4), meta(4, 4), meta(4, 4), 0, 0, False)],
+            mct_cuda.DWT97_INT),
     }
     with pytest.raises(ValueError, match="device"):
         calls[name]()
