@@ -123,11 +123,14 @@ exits non-zero:
  11. the v3 program's coefficient stages: on the programs and lanes of
      c3's natural frame (5/3) and of the c2 batch (integer and float
      9/7), ``coef_mosaic`` (dequant + prefill + band mosaic) against
-     ``coef_mosaic_ref`` and ``dwt_lift`` against ``dwt_level_ref`` at
+     ``coef_mosaic_ref`` and the program's one ``dwt_lift_program`` call
+     (and ``dwt_lift`` level by level) against ``dwt_level_ref`` at
      every level (by bits, so float 9/7 too), each with its time by CUDA
-     events, its bound and share; the V3Program's ms per frame, device
-     operations and device-busy ms with the kernels and with the plain
-     torch stages forced on the card (the "before", for the record).
+     events, its bound and share (``dwt_lift`` also by level, its
+     launches a call and its wrapper's host ms); the V3Program's ms per
+     frame, device operations and device-busy ms with the kernels and
+     with the plain torch stages forced on the card (the "before", for
+     the record).
      Phases 4-10 already run every band-direct V3Program through these
      kernels: the launch counts of phases 5, 6, 9 and 10 include them,
      phase 7 checks that the v2 path launches neither, and phase 10
@@ -503,7 +506,8 @@ _KERNELS = {"ht_vlc_pass": ht_scan.ht_vlc_pass,
             "wire_pack": wirepack.pack_words,
             # one count a call: the mosaic launch and the prefill launch
             "coef_mosaic": coef_cuda.coef_mosaic,
-            # one count a (row, column) launch pair: a level of <= 32 planes
+            # one count a launch: a DWT level of <= 48 planes (dwt_lift and
+            # dwt_lift_program both count here)
             "dwt_lift": dwt_cuda.dwt_lift}
 _REFINE = ("ht_sigprop_pass", "ht_magref_pass", "ht_refine")
 _LIFT = ("coef_mosaic", "dwt_lift")
@@ -622,14 +626,18 @@ def _bits_err(a, b):
 def _lift_check(prog, args, reps: int = 0):
     """The two coefficient-stage kernels against their plain versions on a
     band-direct V3Program's own lanes (`args`, on the card): coef_mosaic
-    on the cleanup kernels' mu, then dwt_lift level by level on the
-    kernel's bands, each level's inputs the kernel's previous level.
-    Raises on any difference. Returns, for each kernel, its max abs error
-    (by bits for float32) and, with `reps`, its ms by CUDA events (every
-    level back to back for dwt_lift), the plain version's ms (host clock,
-    one synchronised call), the bound from the bytes these inputs need
-    (each read once, each output written once), that of the two passes
-    this design makes, and dwt_lift's ms level by level."""
+    on the cleanup kernels' mu; then the program's one dwt_lift_program
+    call for every DWT level, each level of each plane against
+    dwt_level_ref on that job's own inputs (the kernel's bands and the
+    kernel's previous level), and the level-by-level entry dwt_lift on the
+    same jobs. Raises on any difference, or if the call launched other
+    than ``prog.kernel_launches()`` says. Returns, for each kernel, its max
+    abs error (by bits for float32) and, with `reps`, its ms by CUDA events
+    (dwt_lift: the one call), the plain version's ms (host clock, one
+    synchronised call), the bound from the bytes these inputs need (each
+    read once, each output written once); for dwt_lift also its ms level
+    by level (dwt_lift a level), the launches of a call and the host ms of
+    one call's wrapper work (host clock, calls queued behind a spin)."""
     mu, _sig, _ok = ht_scan.decode_cleanup_scan_dims(
         *(args[k] for k in _CLEANUP_ARGS), prog.qw, prog.qh, prog.ms_class)
     lay, t = prog.layout, prog.transform
@@ -641,19 +649,26 @@ def _lift_check(prog, args, reps: int = 0):
     if coef["max_abs_err"]:
         raise RuntimeError(f"coef_mosaic differs from coef_mosaic_ref "
                            f"(max abs err by bits {coef['max_abs_err']})")
+    before = dwt_cuda.dwt_lift.launches
+    got = dwt_cuda.dwt_lift_program(prog.lift, bands)
+    launched = dwt_cuda.dwt_lift.launches - before
+    if launched != prog.kernel_launches()["dwt_lift"]:
+        raise RuntimeError(f"dwt_lift_program launched {launched} times, "
+                           f"expected {prog.kernel_launches()}")
+    job = {(i, lev): prog.lift.view(got, j)
+           for j, (i, lev, _w, _h) in enumerate(prog.lift.jobs)}
     views = lay.views(bands)
     outs = [views[i] for i in prog._ll]
     levels, err, samples = [], 0, 0
     for lev in range(prog.levels):
         todo, jobs = prog.level_jobs(lev, outs, views)
-        got = dwt_cuda.dwt_lift(jobs, t)
-        for g, j in zip(got, jobs):
-            err = max(err, _bits_err(g, dwt_torch.dwt_level_ref(
-                *j[:6], t, j[6])))
-            samples += g.numel()
+        one = dwt_cuda.dwt_lift(jobs, t)
+        for i, o, j in zip(todo, one, jobs):
+            want = dwt_torch.dwt_level_ref(*j[:6], t, j[6])
+            err = max(err, _bits_err(job[i, lev], want), _bits_err(o, want))
+            samples += o.numel()
+            outs[i] = job[i, lev]
         levels.append(jobs)
-        for i, p in zip(todo, got):
-            outs[i] = p
     if err:
         raise RuntimeError(f"dwt_lift differs from dwt_level_ref (max abs "
                            f"err by bits {err})")
@@ -668,26 +683,24 @@ def _lift_check(prog, args, reps: int = 0):
             ms=_cuda_ms(lambda: coef_cuda.coef_mosaic(*cin), reps, True),
             bound_ms=_bound(4 * mapped + 4 * lay.total + 64 * N + 8 * n_pf),
             samples=lay.total, lanes=N)
-
-        def run_kernel():
-            for jobs in levels:
-                dwt_cuda.dwt_lift(jobs, t)
-
-        def run_plain():
-            for jobs in levels:
-                for j in jobs:
-                    dwt_torch.dwt_level_ref(*j[:6], t, j[6])
-        _r, lift_plain_ms = _plain(run_plain)
-        # a single pass reads every band sample once and writes every
-        # level's output once; the two passes move the level twice more
-        lift.update(plain_ms=lift_plain_ms,
-                    ms=_cuda_ms(run_kernel, reps, True),
+        run = lambda: dwt_cuda.dwt_lift_program(prog.lift, bands)
+        _r, lift_plain_ms = _plain(dwt_cuda.dwt_lift_program_ref, prog.lift,
+                                   bands)
+        run()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e6 * reps))         # ~1 ms a call queued
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        # every band sample read once and every level's output written once
+        lift.update(plain_ms=lift_plain_ms, ms=_cuda_ms(run, reps, True),
                     ms_by_level=[_cuda_ms(lambda: dwt_cuda.dwt_lift(jobs, t),
                                           reps, True) for jobs in levels],
-                    bound_ms=_bound(8 * samples),
-                    two_pass_bound_ms=_bound(16 * samples),
-                    samples=samples, levels=len(levels),
-                    launches_per_call=sum(-(-len(j) // 32) for j in levels))
+                    bound_ms=_bound(8 * samples), samples=samples,
+                    levels=len(levels), host_ms=host_ms,
+                    launches_per_call=launched)
     return {"coef_mosaic": coef, "dwt_lift": lift}
 
 
@@ -695,14 +708,13 @@ def _lift_check(prog, args, reps: int = 0):
 def _plain_stages():
     """The V3Program's coefficient stages run as their plain torch
     versions on the card too (phase 11's "before", for the record)."""
-    saved = coef_cuda.coef_mosaic, dwt_cuda.dwt_lift
+    saved = coef_cuda.coef_mosaic, dwt_cuda.dwt_lift_program
     coef_cuda.coef_mosaic = coef_cuda.coef_mosaic_ref
-    dwt_cuda.dwt_lift = lambda jobs, t: [
-        dwt_torch.dwt_level_ref(*j[:6], t, j[6]) for j in jobs]
+    dwt_cuda.dwt_lift_program = dwt_cuda.dwt_lift_program_ref
     try:
         yield
     finally:
-        coef_cuda.coef_mosaic, dwt_cuda.dwt_lift = saved
+        coef_cuda.coef_mosaic, dwt_cuda.dwt_lift_program = saved
 
 
 def _device_ops(fn, reps: int = 3):
@@ -762,12 +774,12 @@ def _phase11(dev, c3_stream, c2_streams):
               f"{c['ms']:.4f} ms, plain {c['plain_ms']:.2f} ms, bound "
               f"{c['bound_ms']:.4f} ms (bytes), "
               f"{100 * c['bound_ms'] / c['ms']:.1f}% of bound; dwt_lift "
-              f"== dwt_level_ref at every level ({d['launches_per_call']} "
-              f"launch pairs): kernel {d['ms']:.4f} ms, plain "
+              f"== dwt_level_ref at every level, one dwt_lift_program call "
+              f"({d['launches_per_call']} launches, wrapper host "
+              f"{d['host_ms']:.4f} ms): kernel {d['ms']:.4f} ms, plain "
               f"{d['plain_ms']:.2f} ms, bound {d['bound_ms']:.4f} ms "
-              f"(bytes, one pass; two passes {d['two_pass_bound_ms']:.4f}),"
-              f" {100 * d['bound_ms'] / d['ms']:.1f}% of bound (ms by level, "
-              f"lowest first: "
+              f"(bytes, one pass), {100 * d['bound_ms'] / d['ms']:.1f}% of "
+              f"bound (ms by level, lowest first: "
               f"{', '.join(f'{x:.4f}' for x in d['ms_by_level'])}); V3Program "
               f"{before:.3f} -> {after:.3f} ms/frame, device ops "
               f"{ops_before:.0f} -> {ops_after:.0f} a call, device busy "

@@ -1,68 +1,98 @@
-// One level of the band-direct inverse DWT (5/3, integer 9/7, float 9/7)
-// for several planes in one launch pair.
+// The band-direct inverse DWT (5/3, integer 9/7, float 9/7): every level
+// of every plane of a program, one pass a level over 2-D tiles.
 //
 // Replaces the XLA-op polyphase lifting of the JAX package's v3 program
 // (ffmpeg_ht_tpu/ops/dwt_jax.py:330 dwt_decode_bands, itself the
 // reference's sr_1d53 / sr_1d97_int / sr_1d97_float, jpeg2000dwt.c:
 // 309-537). The plain PyTorch version is
-// ffmpeg_ht_tpu_torch/ops/dwt_torch.py:dwt_level_ref.
+// ffmpeg_ht_tpu_torch/ops/dwt_torch.py:dwt_level_ref; ops/dwt_cuda.py
+// is the wrapper and holds the tile shape and halo passed in here.
 //
 // A job is one plane's level: the previous LL (nEv x nEh), HL (nEv x nOh),
 // LH (nOv x nEh) and HH (nOv x nOh), contiguous, and the output, the next
-// LL (h x w, w = nEh + nOh, h = nEv + nOv). The line [m, m + n) of a level
-// whose origin parity is m (mh across, mv down) holds its L samples at even
-// positions: nE = (n + 1 - m) / 2 of them, E[k] = p[2k]; O[k] = p[2k + 1].
-// The lifting runs on those polyphase halves. The symmetric extension is
-// never stored: a neighbour outside the valid range is read from its
-// mirror inside it (lifting commutes with the mirror), exactly as
-// _poly_ranges / _mpad_pair do.
+// LL (h x w, w = nEh + nOh, h = nEv + nOv). The level covers the absolute
+// positions [mh, mh + w) across and [mv, mv + h) down (mh, mv its origin
+// parities); E (L) samples sit at even positions, O (H) samples at odd
+// ones. Rows are lifted first (LL | HL, LH | HH), then columns, and the
+// integer 9/7's final rounding shift follows on a plane's last level.
 //
-//   lift_rows: a block per output row. Row r < nEv takes (LL | HL) row r,
-//     else (LH | HH) row r - nEv; its E and O halves go into shared memory,
-//     every horizontal lifting step runs there with __syncthreads between
-//     steps, and the row is stored interleaved into the output row r. The
-//     output then holds the vertical E rows, then the O rows.
-//   lift_cols: a block per strip of S adjacent columns (S a power of two,
-//     at most 32, chosen so that h x S samples fit in 96 KB). The strip's
-//     E and O rows go into shared memory, every vertical step runs there,
-//     and the strip is stored back interleaved, in place: a block reads
-//     and writes only its own columns. The integer 9/7's final rounding
-//     shift (I_PRESHIFT) is applied here on the last level.
+// What bounds it on the H100: device-memory bytes, a few operations a
+// sample: each band sample read once and each output sample written once,
+// 8 bytes a sample. The design moves about that:
+//
+//   Tiles. A block owns a tile of tile_rows x tile_cols output samples
+//     and lifts it from a window that reaches `halo` samples past it on
+//     every side (2 for the 5/3's two lifting steps, 4 for the 9/7's
+//     four: a step spoils one more sample at a window's edge, so the
+//     tile's own samples come out exact and equal, bit for bit, to what
+//     a neighbouring tile recomputes in its halo). The window starts at
+//     an even absolute position on both axes, so its even rows and
+//     columns are E and its odd ones O, whatever the origin parities. A
+//     level is read once plus the halos (14% more for the 5/3 at 32 x
+//     252, 29% for the 9/7 at 32 x 248, mostly from L2: neighbouring
+//     tiles run at about the same time) and written once: no
+//     intermediate goes to device memory. A window is 40 rows: a tile
+//     of 32 rows and the 9/7's halos, two blocks an SM. The tile height
+//     was swept on the card up to those 32 rows
+//     (tools/sweep_dwt_tiles.py): 32 was the fastest on c3 and c2.
+//   Borders. A window position outside the level, within `halo` of it,
+//     is loaded from its mirror inside the level (_poly_ranges' maps:
+//     lifting commutes with the symmetric extension); farther positions
+//     are not loaded. So a window wider than a short level (8 x 8 at odd
+//     parities) never reads past the mirrored range, and the lifting
+//     itself needs no border case.
+//   Shared memory. A window row holds its 128 E samples, then, 16 words
+//     on (so that E[p] and O[p] fall in banks 16 apart), its 128 O
+//     samples: 272 words a row. The row pass gives a warp a window row,
+//     4 (E, O) pairs a lane (pair l + 32 j), the neighbours from the next
+//     lanes by shuffles, in registers; the column pass gives a thread a
+//     tile column, the whole window column in registers, and stores the
+//     tile's rows coalesced across the warp.
+//   Copies. A persistent grid (as many blocks as fit on the card) walks
+//     the level's tiles, every job's in one grid, so that c3's 3 planes
+//     and c2's 12 fill the card alike. Each block keeps two windows: the
+//     next tile's is loaded with 4-byte cp.async (band rows sit at any
+//     offset, so no wider copy is aligned in general) while the current
+//     one is lifted.
+//   Levels. A program's levels are one launch each, in order on one
+//     stream, each a programmatic dependent of the one before: its grid
+//     is scheduled while the previous level runs and waits
+//     (griddepcontrol.wait) before it reads anything. A small level
+//     costs ~8 us, most of it one tile's load-lift-store chain.
 //
 // Arithmetic follows the plain version exactly: int32 with wraparound,
 // the Q16 products of the integer 9/7 in int64 where the reference widens
 // them, and the float 9/7 in float32 with one rounding per operation in
 // the order of _poly_sr97f, spelt __fadd_rn / __fsub_rn / __fmul_rn so
 // that nvcc cannot contract a multiply and an add into one FMA.
-//
-// What bounds it on the H100: device-memory bytes (a few operations a
-// sample). A single-pass design would read each band sample once and
-// write each output sample once; this one is two passes, so it moves
-// about twice that (the row pass writes and the column pass reads and
-// writes the level once more). Up to 32 jobs (the planes of every frame
-// of a program) share a launch pair: blockIdx.y is the job.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxJobs = 32;
-constexpr int kColBytes = 96 * 1024;     // shared memory of a column strip
-constexpr int kMaxBytes = 227 * 1024;    // a block's shared memory
+constexpr int kThreads = 256;            // 8 warps; one window column each
+constexpr int kPairs = 128;              // (E, O) pairs of a window row
+constexpr int kOddOff = kPairs + 16;     // a window row's O half
+constexpr int kRowWords = kOddOff + kPairs;
+constexpr int kMaxJobs = 48;             // jobs a launch (3.5 KB of params)
+constexpr int kRows = 40;                // window rows: a 32-row tile and
+                                         // the 9/7's halos
+constexpr int kJobInts = 12;             // int64 values a job in the table
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Job {
-  const void* ll;
-  const void* hl;
-  const void* lh;
-  const void* hh;
-  void* out;
-  int w, h, mh, mv, preshift;
+  int64_t ll, hl, lh, hh, out;           // byte offsets from the bases
+  int w, h, mh, mv;
+  int preshift, ll_out;                  // ll_out: ll lies in `out`
+  int tiles_x, tile0;                    // tile columns; first tile
 };
 
-struct Jobs {
-  Job j[kMaxJobs];                       // 2 KB of kernel parameters
+struct Launch {
+  Job j[kMaxJobs];
+  int njobs, ntiles;
+  int tile_rows, tile_cols, halo;        // halo in samples (even)
 };
 
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
@@ -128,175 +158,287 @@ struct Lift97f {
   __device__ static T preshift(T v) { return v; }
 };
 
-// The lifting of one line, or of S lines side by side (sample k of line s
-// at [k * S + s]), on its polyphase halves E (nE) and O (nO) in shared
-// memory; the line is [i0, i1) with i1 - i0 = nE + nO.
+// Where a tile lies: its job's bands and output, and the absolute row
+// and column of its window's first sample (both even).
+struct Tile {
+  const char* ll;
+  const char* hl;
+  const char* lh;
+  const char* hh;
+  char* out;
+  int w, h, mh, mv, preshift;
+  int a0, b0;
+};
+
+__device__ __forceinline__ Tile locate(const Launch& L, int t,
+                                       const char* in, char* out) {
+  int jb = 0;
+  while (jb + 1 < L.njobs && L.j[jb + 1].tile0 <= t) ++jb;
+  const Job& J = L.j[jb];
+  const int ti = t - J.tile0, ty = ti / J.tiles_x, tx = ti - ty * J.tiles_x;
+  Tile g;
+  g.ll = (J.ll_out ? out : in) + J.ll;
+  g.hl = in + J.hl;
+  g.lh = in + J.lh;
+  g.hh = in + J.hh;
+  g.out = out + J.out;
+  g.w = J.w, g.h = J.h, g.mh = J.mh, g.mv = J.mv, g.preshift = J.preshift;
+  g.a0 = ty * L.tile_rows - L.halo;
+  g.b0 = tx * L.tile_cols - L.halo;
+  return g;
+}
+
+// i mirrored into [lo, hi) (the symmetric extension; |i| reaches past the
+// range by at most the halo, less than the 8 samples of a level)
+__device__ __forceinline__ int mirror(int i, int lo, int hi) {
+  return i < lo ? 2 * lo - i : i >= hi ? 2 * (hi - 1) - i : i;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src));
+}
+
+// Start the copy of a tile's window into `buf`: a thread per window
+// column (its E or O half, pair p), every row of the window that lies
+// within `halo` of the level, mirrored into it.
+template <class T>
+__device__ void load_window(const Tile& g, const Launch& L, T* buf) {
+  const int halo = L.halo, nrows = L.tile_rows + 2 * halo;
+  const int odd = threadIdx.x / kPairs, p = threadIdx.x % kPairs;
+  const int x = g.b0 + 2 * p + odd;
+  if (x < g.mh - halo || x >= g.mh + g.w + halo) return;
+  const int xm = mirror(x, g.mh, g.mh + g.w);
+  const int col = odd ? ((xm - 1) >> 1) - (g.mh >> 1)
+                      : (xm >> 1) - ((g.mh + 1) >> 1);
+  const int nE = (g.w + 1 - g.mh) >> 1;
+  const int64_t stride = odd ? g.w - nE : nE;
+  const T* e_rows = reinterpret_cast<const T*>(odd ? g.hl : g.ll) + col;
+  const T* o_rows = reinterpret_cast<const T*>(odd ? g.hh : g.lh) + col;
+  T* dst = buf + (odd ? kOddOff : 0) + p;
+  for (int r = 0; r < nrows; ++r) {
+    const int y = g.a0 + r;
+    if (y < g.mv - halo || y >= g.mv + g.h + halo) continue;
+    const int ym = mirror(y, g.mv, g.mv + g.h);
+    const T* src = (r & 1)
+        ? o_rows + (((ym - 1) >> 1) - (g.mv >> 1)) * stride
+        : e_rows + ((ym >> 1) - ((g.mv + 1) >> 1)) * stride;
+    cp_async4(dst + r * kRowWords, src);
+  }
+}
+
+// Every horizontal step on every window row, in place: a warp a row,
+// pair l + 32 j in lane l. A window edge's neighbour is whatever the
+// shuffle brings (the halo absorbs it).
 template <class Op>
-__device__ void lift(typename Op::T* E, typename Op::T* O, int nE, int nO,
-                     int i0, int log2S) {
+__device__ void lift_rows(typename Op::T* buf, int nrows) {
   using T = typename Op::T;
-  const int S = 1 << log2S, i1 = i0 + nE + nO;
-  const int e_lo = (i0 + 1) >> 1, o_lo = i0 >> 1;
-  const int e_hi = e_lo + nE, o_hi = o_lo + nO;
-  // polyphase index -> array row, mirrored into the valid range
-  auto o_row = [&](int i) {
-    return (i < o_lo ? i0 - i - 1 : i >= o_hi ? i1 - i - 2 : i) - o_lo;
-  };
-  auto e_row = [&](int i) {
-    return (i < e_lo ? i0 - i : i >= e_hi ? i1 - 1 - i : i) - e_lo;
-  };
-  for (int st = 0; st < Op::kSteps; ++st) {
-    if ((st & 1) == 0) {
-      for (int idx = threadIdx.x; idx < (nE << log2S); idx += blockDim.x) {
-        const int k = (idx >> log2S) + e_lo, s = idx & (S - 1);
-        const T a = O[(o_row(k - 1) << log2S) + s];
-        const T b = O[(o_row(k) << log2S) + s];
-        E[idx] = Op::step(st, E[idx], a, b);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < (nO << log2S); idx += blockDim.x) {
-        const int k = (idx >> log2S) + o_lo, s = idx & (S - 1);
-        const T a = E[(e_row(k) << log2S) + s];
-        const T b = E[(e_row(k + 1) << log2S) + s];
-        O[idx] = Op::step(st, O[idx], a, b);
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < nrows; r += kThreads / 32) {
+    T* row = buf + r * kRowWords;
+    T e[4], o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      e[j] = row[lane + 32 * j];
+      o[j] = row[kOddOff + lane + 32 * j];
+    }
+#pragma unroll
+    for (int st = 0; st < Op::kSteps; ++st) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((st & 1) == 0) {        // E[p] from O[p - 1], O[p]
+          const T a = __shfl_sync(kFull, (lane == 31 && j > 0)
+                                  ? o[j > 0 ? j - 1 : 0] : o[j],
+                                  (lane + 31) % 32);
+          e[j] = Op::step(st, e[j], a, o[j]);
+        } else {                    // O[p] from E[p], E[p + 1]
+          const T b = __shfl_sync(kFull, (lane == 0 && j < 3)
+                                  ? e[j < 3 ? j + 1 : 3] : e[j],
+                                  (lane + 1) % 32);
+          o[j] = Op::step(st, o[j], e[j], b);
+        }
       }
     }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      row[lane + 32 * j] = e[j];
+      row[kOddOff + lane + 32 * j] = o[j];
+    }
+  }
+}
+
+// Every vertical step on the tile's columns, a thread a column with the
+// whole window column in registers; the tile's rows that lie in the
+// level are stored (with the integer 9/7's shift on a last level).
+template <class Op>
+__device__ void lift_cols(const Tile& g, const Launch& L,
+                          const typename Op::T* buf) {
+  using T = typename Op::T;
+  const int c = threadIdx.x, x = L.halo + c, X = g.b0 + x;
+  if (c >= L.tile_cols || X < g.mh || X >= g.mh + g.w) return;
+  const T* col = buf + ((x & 1) ? kOddOff : 0) + (x >> 1);
+  T v[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) v[r] = col[r * kRowWords];
+#pragma unroll
+  for (int st = 0; st < Op::kSteps; ++st) {
+#pragma unroll
+    for (int r = 2 - (st & 1); r + 1 < kRows; r += 2)
+      v[r] = Op::step(st, v[r], v[r - 1], v[r + 1]);
+  }
+  T* dst = reinterpret_cast<T*>(g.out) + (X - g.mh);
+  const int lo = max(L.halo, g.mv - g.a0);
+  const int hi = min(L.halo + L.tile_rows, g.mv + g.h - g.a0);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < lo || r >= hi) continue;
+    dst[(int64_t)(g.a0 + r - g.mv) * g.w] =
+        g.preshift ? Op::preshift(v[r]) : v[r];
+  }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kThreads, 2)
+lift_tiles(const __grid_constant__ Launch L, const char* in, char* out) {
+  using T = typename Op::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* bufs = reinterpret_cast<T*>(smem);
+  constexpr int kBuf = kRows * kRowWords;
+  // launched as a programmatic dependent of the previous level: let the
+  // next level's grid be scheduled now, and read nothing before this
+  // one's predecessor has finished and its writes are visible
+  asm volatile("griddepcontrol.launch_dependents;\n");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  int t = blockIdx.x;
+  if (t >= L.ntiles) return;
+  load_window(locate(L, t, in, out), L, bufs);
+  asm volatile("cp.async.commit_group;\n");
+  for (int it = 0; t < L.ntiles; ++it) {
+    const int next = t + gridDim.x;
+    if (next < L.ntiles)
+      load_window(locate(L, next, in, out), L, bufs + ((it + 1) & 1) * kBuf);
+    asm volatile("cp.async.commit_group;\n");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
+    T* buf = bufs + (it & 1) * kBuf;
+    lift_rows<Op>(buf, L.tile_rows + 2 * L.halo);
+    __syncthreads();
+    lift_cols<Op>(locate(L, t, in, out), L, buf);
+    __syncthreads();
+    t = next;
   }
 }
 
+// One launch: a persistent grid of as many blocks as fit on the current
+// device (its attribute set and occupancy read once a device).
 template <class Op>
-__global__ void __launch_bounds__(kThreads) lift_rows(Jobs jobs) {
-  using T = typename Op::T;
-  const Job jb = jobs.j[blockIdx.y];
-  const int r = blockIdx.x;
-  if (r >= jb.h) return;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* E = reinterpret_cast<T*>(smem);
-  const int nEh = (jb.w + 1 - jb.mh) >> 1, nOh = jb.w - nEh;
-  const int nEv = (jb.h + 1 - jb.mv) >> 1;
-  T* O = E + nEh;
-  const T* lo;
-  const T* hi;
-  if (r < nEv) {
-    lo = (const T*)jb.ll + (int64_t)r * nEh;
-    hi = (const T*)jb.hl + (int64_t)r * nOh;
-  } else {
-    lo = (const T*)jb.lh + (int64_t)(r - nEv) * nEh;
-    hi = (const T*)jb.hh + (int64_t)(r - nEv) * nOh;
-  }
-  for (int k = threadIdx.x; k < nEh; k += blockDim.x) E[k] = lo[k];
-  for (int k = threadIdx.x; k < nOh; k += blockDim.x) O[k] = hi[k];
-  __syncthreads();
-  lift<Op>(E, O, nEh, nOh, jb.mh, 0);
-  T* dst = (T*)jb.out + (int64_t)r * jb.w;
-  for (int j = threadIdx.x; j < jb.w; j += blockDim.x)
-    dst[j] = (((j ^ jb.mh) & 1) == 0 ? E : O)[j >> 1];
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads) lift_cols(Jobs jobs,
-                                                      int log2S) {
-  using T = typename Op::T;
-  const Job jb = jobs.j[blockIdx.y];
-  const int S = 1 << log2S, c0 = blockIdx.x << log2S;
-  if (c0 >= jb.w) return;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* E = reinterpret_cast<T*>(smem);
-  const int nEv = (jb.h + 1 - jb.mv) >> 1, nOv = jb.h - nEv;
-  T* O = E + (nEv << log2S);
-  T* buf = (T*)jb.out;
-  const int n = jb.h << log2S;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int r = idx >> log2S, c = c0 + (idx & (S - 1));
-    E[idx] = c < jb.w ? buf[(int64_t)r * jb.w + c] : T(0);
-  }
-  __syncthreads();
-  lift<Op>(E, O, nEv, nOv, jb.mv, log2S);
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx >> log2S, s = idx & (S - 1), c = c0 + s;
-    if (c >= jb.w) continue;
-    T v = (((j ^ jb.mv) & 1) == 0 ? E : O)[((j >> 1) << log2S) + s];
-    if (jb.preshift) v = Op::preshift(v);
-    buf[(int64_t)j * jb.w + c] = v;
-  }
-}
-
-template <class Op>
-int launch(const Jobs& jobs, int n, cudaStream_t s) {
-  using T = typename Op::T;
-  int max_w = 0, max_h = 0;
-  for (int i = 0; i < n; ++i) {
-    max_w = jobs.j[i].w > max_w ? jobs.j[i].w : max_w;
-    max_h = jobs.j[i].h > max_h ? jobs.j[i].h : max_h;
-  }
-  const int64_t row_bytes = (int64_t)max_w * sizeof(T);
-  if (row_bytes > kMaxBytes || (int64_t)max_h * sizeof(T) > kMaxBytes)
-    return (int)cudaErrorInvalidValue;
-  int log2S = 5;
-  while (log2S > 0 && ((int64_t)max_h << log2S) * (int64_t)sizeof(T)
-                          > kColBytes)
-    --log2S;
-  while (log2S > 0 && (1 << (log2S - 1)) >= max_w) --log2S;
-  const int64_t col_bytes = ((int64_t)max_h << log2S) * sizeof(T);
-  // above 48 KB a block's dynamic shared memory needs the opt-in
-  cudaError_t err = cudaSuccess;
-  if (row_bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(lift_rows<Op>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)row_bytes);
-  if (err == cudaSuccess && col_bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(lift_cols<Op>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)col_bytes);
+int launch(const Launch& L, const char* in, char* out, cudaStream_t s) {
+  static int grid[kMaxDevices];
+  const size_t smem = 2 * (size_t)kRows * kRowWords * sizeof(typename Op::T);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  lift_rows<Op><<<dim3((unsigned)max_h, (unsigned)n), kThreads,
-                  (size_t)row_bytes, s>>>(jobs);
-  err = cudaGetLastError();
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (grid[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(lift_tiles<Op>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, lift_tiles<Op>, kThreads, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid[dev] = per_sm * sms;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3(L.ntiles < grid[dev] ? L.ntiles : grid[dev]);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lift_tiles<Op>, L, in, out);
   if (err != cudaSuccess) return (int)err;
-  const int strips = (max_w + (1 << log2S) - 1) >> log2S;
-  lift_cols<Op><<<dim3((unsigned)strips, (unsigned)n), kThreads,
-                  (size_t)col_bytes, s>>>(jobs, log2S);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (ctypes). ll, hl, lh, hh, out: host arrays of
-// `njobs` device pointers (int32 planes in modes 0 and 1, float32 in mode
-// 2); dims: host array of 5 ints a job: w, h, mh, mv, preshift (the
-// output's width and height, the level's origin parities, and 1 to apply
-// the integer 9/7's final shift). mode: 0 = 5/3, 1 = integer 9/7, 2 =
-// float 9/7. The output must not overlap the inputs. One row launch and
-// one column launch per kMaxJobs jobs, on `stream`, without
-// synchronising; returns the first cudaGetLastError() that is not
-// cudaSuccess, or cudaErrorInvalidValue for an unknown mode, njobs < 1, a
-// level below 8 x 8 (the flat fallback's), a parity other than 0 or 1, a
-// preshift outside mode 1, or a line too long for shared memory.
-extern "C" int dwt_lift_launch(const void* const* ll, const void* const* hl,
-                               const void* const* lh, const void* const* hh,
-                               void* const* out, const int* dims, int njobs,
-                               int mode, void* stream) {
-  if (njobs < 1 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+// Plain C entry point (ctypes). `table`: host array of kJobInts int64
+// values a job, sorted by level: level, ll_out, ll, hl, lh, hh, out, w,
+// h, mh, mv, preshift. ll, hl, lh, hh, out are element offsets (int32
+// in modes 0 and 1, float32 in mode 2) from `in`, or from `out` for ll
+// when ll_out is 1 (a previous level's output) and for out; w, h the
+// output's width and height, mh, mv the level's origin parities,
+// preshift 1 for the integer 9/7's final shift. mode: 0 = 5/3, 1 =
+// integer 9/7, 2 = float 9/7. tile_rows x tile_cols: a tile's output
+// samples (even; the window, tile_rows + 4 halo_pairs rows, at most
+// kRows); halo_pairs: the (E, O) pairs a window reaches past its
+// tile on each side. The levels run in order on `stream`, one launch a
+// level (a level of more than kMaxJobs jobs takes one more launch each
+// kMaxJobs), without synchronising; *launches gets the launches made.
+// An output must not overlap an input of its level. Returns the first
+// cudaGetLastError() that is not cudaSuccess, or cudaErrorInvalidValue
+// for an unknown mode, a level below 8 x 8 (the flat fallback's), a
+// parity or flag other than 0 or 1, a preshift outside mode 1, levels
+// out of order, or a tile shape and halo the window does not hold.
+extern "C" int dwt_lift_launch(const int64_t* table, int njobs,
+                               const void* in, void* out, int mode,
+                               int tile_rows, int tile_cols, int halo_pairs,
+                               void* stream, int* launches) {
+  *launches = 0;
+  const int halo = 2 * halo_pairs;
+  if (njobs < 1 || mode < 0 || mode > 2 || halo_pairs < 0
+      || tile_rows < 2 || (tile_rows & 1) || tile_cols < 2 || (tile_cols & 1)
+      || tile_rows + 2 * halo > kRows || tile_cols + 2 * halo > 2 * kPairs)
+    return (int)cudaErrorInvalidValue;
+  const int64_t size = mode == 2 ? sizeof(float) : sizeof(int32_t);
   cudaStream_t s = (cudaStream_t)stream;
-  for (int j0 = 0; j0 < njobs; j0 += kMaxJobs) {
-    const int n = njobs - j0 < kMaxJobs ? njobs - j0 : kMaxJobs;
-    Jobs jobs;
-    for (int i = 0; i < n; ++i) {
-      const int* d = dims + 5 * (j0 + i);
-      if (d[0] < 8 || d[1] < 8 || (d[2] & ~1) || (d[3] & ~1)
-          || (d[4] & ~1) || (d[4] && mode != 1))
+  int64_t prev_level = table[0];
+  for (int j0 = 0; j0 < njobs;) {
+    Launch L;
+    L.tile_rows = tile_rows, L.tile_cols = tile_cols, L.halo = halo;
+    L.njobs = 0;
+    int64_t tiles = 0;
+    const int64_t level = table[(int64_t)j0 * kJobInts];
+    if (level < prev_level) return (int)cudaErrorInvalidValue;
+    prev_level = level;
+    for (; j0 < njobs && L.njobs < kMaxJobs
+           && table[(int64_t)j0 * kJobInts] == level; ++j0) {
+      const int64_t* d = table + (int64_t)j0 * kJobInts;
+      if (d[7] < 8 || d[8] < 8 || d[7] > INT32_MAX / 2 || d[8] > INT32_MAX / 2
+          || (d[1] & ~1) || (d[9] & ~1) || (d[10] & ~1) || (d[11] & ~1)
+          || (d[11] && mode != 1))
         return (int)cudaErrorInvalidValue;
-      jobs.j[i] = Job{ll[j0 + i], hl[j0 + i], lh[j0 + i], hh[j0 + i],
-                      out[j0 + i], d[0], d[1], d[2], d[3], d[4]};
+      Job& J = L.j[L.njobs++];
+      J.ll_out = (int)d[1];
+      J.ll = d[2] * size, J.hl = d[3] * size, J.lh = d[4] * size;
+      J.hh = d[5] * size, J.out = d[6] * size;
+      J.w = (int)d[7], J.h = (int)d[8], J.mh = (int)d[9], J.mv = (int)d[10];
+      J.preshift = (int)d[11];
+      J.tiles_x = (J.mh + J.w + tile_cols - 1) / tile_cols;
+      J.tile0 = (int)tiles;
+      tiles += (int64_t)J.tiles_x * ((J.mv + J.h + tile_rows - 1) / tile_rows);
+      if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
     }
+    L.ntiles = (int)tiles;
+    const char* src = static_cast<const char*>(in);
+    char* dst = static_cast<char*>(out);
     int err;
     switch (mode) {
-      case 0: err = launch<Lift53>(jobs, n, s); break;
-      case 1: err = launch<Lift97i>(jobs, n, s); break;
-      default: err = launch<Lift97f>(jobs, n, s); break;
+      case 0: err = launch<Lift53>(L, src, dst, s); break;
+      case 1: err = launch<Lift97i>(L, src, dst, s); break;
+      default: err = launch<Lift97f>(L, src, dst, s); break;
     }
     if (err != 0) return err;
+    ++*launches;
   }
   return 0;
 }

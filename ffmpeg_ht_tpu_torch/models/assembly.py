@@ -30,9 +30,10 @@ On the band-direct route, stages 2-4 are one call of
 ``ops/coef_cuda.coef_mosaic`` for the F frames (the kernel
 ``csrc/coef_mosaic.cu`` on the card) into one band buffer laid out by a
 ``CoefLayout`` built once per program, and stage 5 is one call of
-``ops/dwt_cuda.dwt_lift`` a level for every plane of every frame (the
-kernel ``csrc/dwt_lift.cu``); CPU tensors take their plain versions, the
-torch ops of ops/coef_cuda and ops/dwt_torch. The flat fallback runs
+``ops/dwt_cuda.dwt_lift_program`` for every level of every plane of every
+frame, from a ``LiftPlan`` built beside the layout (the kernel
+``csrc/dwt_lift.cu``, a launch a level); CPU tensors take their plain
+versions, the torch ops of ops/coef_cuda and ops/dwt_torch. The flat fallback runs
 stages 2-5 as torch ops on either device.
 
 ``BucketProgram`` runs the cleanup per bucket of same-shape codeblocks
@@ -334,9 +335,9 @@ class V3Program(_Program):
 
     def _band_schedule(self):
         """The band buffer's layout (every band of every plane of every
-        frame: LL, then HL, LH, HH level by level) and, per (frame,
-        plane), the indices of its LL and of each level's bands and the
-        levels' origin parities."""
+        frame: LL, then HL, LH, HH level by level); per (frame, plane),
+        the indices of its LL and of each level's bands and the levels'
+        origin parities; and the inverse DWT's job table over them."""
         bands, self._ll, self._lvls, self._mods = [], [], [], []
         for f in range(self.frames):
             for plane_p, border, ndec in zip(self.plan.planes, self.borders,
@@ -355,6 +356,9 @@ class V3Program(_Program):
         self.layout = CoefLayout(bands, self.frames * self.n_pad,
                                  self.plan.bh, self.plan.bw)
         self.levels = max(map(len, self._lvls))
+        self.lift = dwt_cuda.LiftPlan(
+            self.layout.offsets, self.layout.shapes,
+            list(zip(self._ll, self._lvls, self._mods)), self.transform)
 
     def level_jobs(self, lev: int, outs, bands):
         """(the planes that have level `lev`, their ``dwt_lift`` jobs),
@@ -368,13 +372,11 @@ class V3Program(_Program):
 
     def kernel_launches(self):
         """{counter: launches} one call of the program adds to the
-        ``coef_mosaic`` and ``dwt_lift`` counters on the card."""
+        ``coef_mosaic`` and ``dwt_lift`` counters on the card (for
+        ``dwt_lift``, a launch a DWT level)."""
         if not self.band_direct:
             return {"coef_mosaic": 0, "dwt_lift": 0}
-        jobs = [sum(lev < len(idx) for idx in self._lvls)
-                for lev in range(self.levels)]
-        return {"coef_mosaic": 1,
-                "dwt_lift": sum(-(-n // 32) for n in jobs)}
+        return {"coef_mosaic": 1, "dwt_lift": self.lift.launches}
 
     def __call__(self, **args):
         return self.pack(*self.decode_planes(**args))
@@ -409,18 +411,16 @@ class V3Program(_Program):
     def _band_direct(self, mu, magb, istep, scale97, fscale, pf_idx,
                      pf_val):
         """Stages 2-5 on the band-direct route: every band of the F
-        frames in one ``coef_mosaic`` call, then one ``dwt_lift`` call a
-        level for every plane that has it (the integer 9/7's final shift
-        on each plane's last level)."""
-        bands = self.layout.views(coef_cuda.coef_mosaic(
+        frames in one ``coef_mosaic`` call, then every DWT level of every
+        plane in one ``dwt_lift_program`` call (the integer 9/7's final
+        shift on each plane's last level)."""
+        buf = coef_cuda.coef_mosaic(
             mu, magb, istep, scale97, fscale, pf_idx, pf_val, self.layout,
-            self.transform, self.no_istep))
-        outs = [bands[i] for i in self._ll]
-        for lev in range(self.levels):
-            todo, jobs = self.level_jobs(lev, outs, bands)
-            for i, p in zip(todo, dwt_cuda.dwt_lift(jobs, self.transform)):
-                outs[i] = p
-        return outs
+            self.transform, self.no_istep)
+        scratch = dwt_cuda.dwt_lift_program(self.lift, buf)
+        return [self.layout.views(buf)[ll] if last is None
+                else self.lift.view(scratch, last)
+                for ll, last in zip(self._ll, self.lift.last)]
 
 
 class BucketProgram(_Program):

@@ -69,10 +69,11 @@ _SIGNATURES = {
                                                          # no_istep
                            _P, _P, _I64, _P, _P],        # pf_idx, pf_val,
                                                          # n_pf, out, stream
-    "dwt_lift_launch": [_P, _P, _P, _P, _P,              # ll, hl, lh, hh,
-                                                         # out (arrays)
-                        _P, _I, _I, _P],                 # dims, jobs, mode,
-                                                         # stream
+    "dwt_lift_launch": [_P, _I, _P, _P,                  # table, jobs,
+                                                         # in, out
+                        _I, _I, _I, _I,                  # mode, tile rows,
+                                                         # cols, halo pairs
+                        _P, _P],                         # stream, launches
 }
 
 

@@ -33,9 +33,12 @@ a c3 plan and on plans whose codeblocks precincts cut and crop, from
 random mu words, lane vectors (shifts past 31, wrapping steps) and
 prefill entries with pads; ``dwt_lift`` matches ``dwt_level_ref`` bit
 for bit in all three transforms on odd origins, the 8x8 minimum, c3's
-and c2's top levels, more jobs than one launch takes and levels too tall
-for a 32-column strip; a V3Program on the card gives the CPU decoder's
-bytes with every plain stage made to raise. With two cards or more:
+and c2's top levels, more jobs than one launch takes, tall levels, lines
+of 60000 samples, and an edge set (every size 8-67 and the tile seams
++-1 on both axes, at every origin-parity pair); ``dwt_lift_program``
+(every level of a V3Program in one call) matches it level by level and
+launches what ``kernel_launches()`` says; a V3Program on the card gives
+the CPU decoder's bytes with every plain stage made to raise. With two cards or more:
 every kernel on the second card's tensors
 while the first is current (the wrappers' launch guard), and
 ``decode_batch(devices=<every card>)`` against one card.
@@ -732,11 +735,24 @@ LIFT_GEOMS = {
     # a c3 plane's top level, and the three planes of a c2 frame
     "c3": [([[0, 4096], [0, 2160]], 6, 5)],
     "c2": [([[0, 1920], [0, 1080]], 5, 4)] * 3,
-    # more jobs than one launch pair takes, and a level too tall for a
-    # 32-column strip
-    "many": [([[1, 41], [3, 43]], 3, 2)] * 40,
+    # more jobs than one launch takes, and tall levels (many tiles down)
+    "many": [([[1, 41], [3, 43]], 3, 2)] * (dwt_cuda.MAX_JOBS + 2),
     "tall": [([[0, 20], [1, 5001]], 1, 0), ([[1, 66], [0, 1500]], 1, 0)],
+    # lines longer than a block's shared memory holds (58 K samples)
+    "long": [([[0, 60000], [0, 8]], 1, 0), ([[0, 8], [0, 60000]], 1, 0),
+             ([[1, 60002], [1, 9]], 1, 0), ([[1, 10], [1, 60003]], 1, 0)],
 }
+
+
+def _check_lift(jobs, transform):
+    before = dwt_cuda.dwt_lift.launches
+    got = dwt_cuda.dwt_lift(jobs, transform)
+    torch.cuda.synchronize()
+    assert dwt_cuda.dwt_lift.launches \
+        == before + -(-len(jobs) // dwt_cuda.MAX_JOBS)
+    for g, j in zip(got, jobs):
+        assert _same_bits(g, dwt_torch.dwt_level_ref(*j[:6], transform,
+                                                     j[6]))
 
 
 @pytest.mark.parametrize("tname", list(TRANSFORMS))
@@ -744,14 +760,56 @@ LIFT_GEOMS = {
 def test_dwt_lift_kernel_matches_ref(cuda, case, tname):
     transform = TRANSFORMS[tname]
     rng = np.random.default_rng(len(case) * 5 + len(tname))
-    jobs = _lift_jobs(rng, LIFT_GEOMS[case], transform, cuda)
+    _check_lift(_lift_jobs(rng, LIFT_GEOMS[case], transform, cuda),
+                transform)
+
+
+@pytest.mark.parametrize("mh,mv", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_dwt_lift_kernel_edge_set(cuda, tname, mh, mv):
+    """Every width and height from 8 to 67, and the tile seams +-1 on both
+    axes, at origin parities (mh, mv): one level each (with the final
+    shift on the integer 9/7)."""
+    transform = TRANSFORMS[tname]
+    rows, cols = dwt_cuda.TILE_ROWS, dwt_cuda.tile_cols(transform)
+    sizes = [(8 + i, 8 + (7 * i + 3) % 60) for i in range(60)]
+    seams = [n + d for n in (rows, 2 * rows) for d in (-1, 0, 1)]
+    seams_w = [n + d for n in (cols, 2 * cols) for d in (-1, 0, 1)]
+    sizes += [(h, w) for h in seams for w in seams_w[::2]] \
+        + [(h, w) for h in seams[::2] for w in seams_w]
+    cases = [([[mh, mh + w], [mv, mv + h]], 1, 0) for h, w in sizes]
+    rng = np.random.default_rng(mh * 2 + mv + 10 * len(tname))
+    _check_lift(_lift_jobs(rng, cases, transform, cuda), transform)
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+@pytest.mark.parametrize("geom", list(COEF_GEOMS))
+def test_dwt_lift_program_matches_ref_level_by_level(cuda, geom, tname):
+    """A V3Program's one dwt_lift_program call on a random band buffer:
+    each level of each plane equals dwt_level_ref on that job's inputs
+    (the buffer's bands, the call's previous level), and the call
+    launches what kernel_launches() says."""
+    transform = TRANSFORMS[tname]
+    prog = _coef_program(geom, transform, 2, 0)
+    rng = np.random.default_rng(len(geom) + 3 * len(tname))
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    bands = torch.from_numpy(rng.integers(-4000, 4000, prog.layout.total)) \
+        .to(dt).to(cuda)
     before = dwt_cuda.dwt_lift.launches
-    got = dwt_cuda.dwt_lift(jobs, transform)
+    got = dwt_cuda.dwt_lift_program(prog.lift, bands)
     torch.cuda.synchronize()
-    assert dwt_cuda.dwt_lift.launches == before + -(-len(jobs) // 32)
-    for g, j in zip(got, jobs):
-        assert _same_bits(g, dwt_torch.dwt_level_ref(*j[:6], transform,
-                                                     j[6]))
+    assert dwt_cuda.dwt_lift.launches - before \
+        == prog.kernel_launches()["dwt_lift"] == prog.levels
+    job = {(i, lev): prog.lift.view(got, j)
+           for j, (i, lev, _w, _h) in enumerate(prog.lift.jobs)}
+    views = prog.layout.views(bands)
+    outs = [views[i] for i in prog._ll]
+    for lev in range(prog.levels):
+        todo, jobs = prog.level_jobs(lev, outs, views)
+        for i, j in zip(todo, jobs):
+            assert _same_bits(job[i, lev], dwt_torch.dwt_level_ref(
+                *j[:6], transform, j[6]))
+            outs[i] = job[i, lev]
 
 
 def test_dwt_lift_kernel_rejects_bad_args(cuda):

@@ -31,7 +31,9 @@ WRAPPERS = {
     "ict_writeframe": mct_cuda.ict_writeframe,
     "wire_pack": wirepack.pack_words,
     "coef_mosaic": coef_cuda.coef_mosaic,
-    "dwt_lift": dwt_cuda.dwt_lift,
+    # dwt_lift and dwt_lift_program launch through dwt_cuda._launch
+    "dwt_lift": dwt_cuda._launch,
+    "dwt_lift_program": dwt_cuda._launch,
 }
 
 
@@ -131,6 +133,10 @@ def test_device_check_still_raises(name, monkeypatch):
         "dwt_lift": lambda: dwt_cuda.dwt_lift(
             [(meta(4, 4), meta(4, 4), meta(4, 4), meta(4, 4), 0, 0, False)],
             mct_cuda.DWT97_INT),
+        "dwt_lift_program": lambda: dwt_cuda.dwt_lift_program(
+            dwt_cuda.LiftPlan([0, 16, 32, 48], [(4, 4)] * 4,
+                              [(0, [(1, 2, 3)], [(0, 0)])],
+                              mct_cuda.DWT97_INT), meta(64)),
     }
     with pytest.raises(ValueError, match="device"):
         calls[name]()
