@@ -71,7 +71,9 @@ exits non-zero:
      [A, B, A, B] once more with ``wire_pack=True`` (as bench.py's c4:
      every frame == source, one wire_pack launch at the end of the
      BucketProgram) and the batch's fetch and unpack ms with and without
-     the pack;
+     the pack; the main paths' launches of ``bucket_scatter``,
+     ``dwt_lift`` and ``plane_writeframe`` as the BucketProgram's
+     ``kernel_launches()`` says;
   8. config 5: phase 3's natural frame and its rolls by 3, 7 and 11
      columns (three more encodes) muxed with ``mux_mxf`` into
      build/c5_motion_htj2k.mxf; ``demux_mxf`` must give back the four
@@ -130,12 +132,32 @@ exits non-zero:
      launches a call and its wrapper's host ms); the V3Program's ms per
      frame, device operations and device-busy ms with the kernels and
      with the plain torch stages forced on the card (the "before", for
-     the record).
-     Phases 4-10 already run every band-direct V3Program through these
-     kernels: the launch counts of phases 5, 6, 9 and 10 include them,
-     phase 7 checks that the v2 path launches neither, and phase 10
-     checks both against their plain versions on every band-direct
-     corpus stream.
+     the record);
+ 12. the v2 program and the flat fallback on their kernels, at config
+     4's widths (1024x1024 tiles, 64x64 codeblocks and precincts, 7
+     resolution levels, 10-bit): on phase 7's decode_batch [A, B, A, B]
+     BucketProgram (16 planes of 1024x1024) and on a 1536x1248 crop of
+     the 8K frame's extent holding its four tile shapes (1024x1024,
+     512x1024, 1024x224 and 512x224, whose lowest DWT levels are 32x7 and
+     16x7), encoded layered (a BucketProgram) and single-layer (a
+     V3Program with levels under 8x8): ``bucket_scatter`` (dequant +
+     prefill + scatter of every bucket) or ``coef_mosaic``, the program's
+     one ``dwt_lift_program`` call (``dwt_small`` for the levels under
+     8x8, strided ``dwt_lift`` jobs on the flat buffer) and
+     ``plane_writeframe`` (DC shift + clip + pack of every plane without
+     MCT) against their plain versions by bits, each with its time by
+     CUDA events, bound, share, launches a call and ptxas registers
+     (``bucket_scatter`` beside an ``index_put_`` of its values); each
+     program's ms/frame, device operations and device-busy ms with the
+     kernels and with the plain stages forced (the c4 batch program's
+     operations must fall twentyfold from the 2395 of its torch stages);
+     the crop's two streams through ``Decoder.decode`` (counts reset
+     before and read after, == source). ``--only programs`` runs phases
+     1, 2 and 12 alone.
+     Phases 4-10 run every program through these kernels: the launch
+     counts of phases 5-10 include them (phase 10's corpus stream by
+     stream), and phase 10 checks each against its plain version on
+     every device stream of the corpus.
 
 The last lines are the card's name and power limit, a JSON object with
 the per-kernel numbers and ``{"ok": true, "device": {...}}``. Needs no
@@ -147,6 +169,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import io
 import itertools
 import json
@@ -354,6 +377,11 @@ def _ptxas(log, names):
             t = re.search(r"ILi(\d+)E", m.group(1))
             if cur and t:
                 cur += f"<{t.group(1)}>"
+            # a type argument (the lifting) or a (bool, int) pair
+            t = re.search(r"(Lift(?:53|97i|97f))|ILb(\d)ELi(\d+)E",
+                          m.group(1))
+            if cur and t:
+                cur += f"<{t.group(1) or t.group(2) + ',' + t.group(3)}>"
         elif cur and "Used" in ln:
             out[cur] = ln.split("Used", 1)[1].strip()
             cur = None
@@ -508,9 +536,18 @@ _KERNELS = {"ht_vlc_pass": ht_scan.ht_vlc_pass,
             "coef_mosaic": coef_cuda.coef_mosaic,
             # one count a launch: a DWT level of <= 48 planes (dwt_lift and
             # dwt_lift_program both count here)
-            "dwt_lift": dwt_cuda.dwt_lift}
+            "dwt_lift": dwt_cuda.dwt_lift,
+            # one count a launch of <= 48 buckets (the memset and the
+            # prefill ride on the call)
+            "bucket_scatter": coef_cuda.bucket_scatter,
+            # one count a launch: every level under 8x8 of a program
+            "dwt_small": dwt_cuda.dwt_small,
+            # one count a launch: <= 160 planes without MCT
+            "plane_writeframe": mct_cuda.plane_writeframe}
 _REFINE = ("ht_sigprop_pass", "ht_magref_pass", "ht_refine")
-_LIFT = ("coef_mosaic", "dwt_lift")
+# the counters a program's kernel_launches() gives
+_PROGRAM = ("coef_mosaic", "bucket_scatter", "dwt_lift", "dwt_small",
+            "plane_writeframe")
 
 
 def _counts():
@@ -523,13 +560,42 @@ def _reset_counts():
 
 
 def _lift_want(dec, data, frames: int, calls: int = 1):
-    """{"coef_mosaic": n, "dwt_lift": n}: the launches of `calls` calls of
-    the V3Program for `frames` frames that `dec` built for `data`'s
-    geometry; zeros when it built none (the v2 and host routes)."""
+    """{counter: n} of _PROGRAM: the launches of `calls` calls of the
+    V3Program for `frames` frames that `dec` built for `data`'s geometry;
+    zeros when it built none (the v2 and host routes)."""
     fg = dec._fast_geom(dec._parse(data))
     progs = [p for k, p in fg.v3_progs.items() if k[0] == frames]
-    per = progs[0].kernel_launches() if progs else dict.fromkeys(_LIFT, 0)
+    per = progs[0].kernel_launches() if progs else dict.fromkeys(_PROGRAM, 0)
     return {k: calls * n for k, n in per.items()}
+
+
+def _v2_program(dec, streams, dev=None):
+    """The BucketProgram ``dec.decode_batch(streams)`` runs on the flat
+    lane (``Decoder._v2_args``, the decoder's cached program) and its
+    arguments on `dev`: (program, (pf_idx, pf_val, bucket args)), or
+    (program, None) without `dev`."""
+    hdrs = [dec._parse(d) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+    geom, (shapes, bargs, pf_idx, pf_val), _accum = dec._v2_args(
+        fg, [FP.parse_frame_flat(h, fg) for h in hdrs])
+    up = lambda v: to_torch(v, dev) if isinstance(v, np.ndarray) else v
+    prog = DEC.bucket_program(tuple(map(tuple, shapes)), geom.key(),
+                              dec._wp(geom.cbps))
+    if dev is None:
+        return prog, None
+    return prog, (up(pf_idx), up(pf_val),
+                  [{k: up(v) for k, v in a.items()} for a in bargs])
+
+
+def _v2_want(dec, streams):
+    """{counter: n} of _PROGRAM and the entropy stage's: what one call of
+    that BucketProgram launches (a cleanup pair a bucket, a refinement
+    pair a refined bucket)."""
+    prog, _args = _v2_program(dec, streams)
+    refined = sum(1 for s in prog.shapes if s[5])
+    return {"ht_vlc_pass": len(prog.shapes),
+            "ht_magsgn_pass": len(prog.shapes),
+            **dict.fromkeys(_REFINE, refined), **prog.kernel_launches()}
 
 
 def _host_diff(frame, data, bitexact: bool):
@@ -706,15 +772,19 @@ def _lift_check(prog, args, reps: int = 0):
 
 @contextlib.contextmanager
 def _plain_stages():
-    """The V3Program's coefficient stages run as their plain torch
-    versions on the card too (phase 11's "before", for the record)."""
-    saved = coef_cuda.coef_mosaic, dwt_cuda.dwt_lift_program
-    coef_cuda.coef_mosaic = coef_cuda.coef_mosaic_ref
-    dwt_cuda.dwt_lift_program = dwt_cuda.dwt_lift_program_ref
+    """The programs' coefficient stages and write-out run as their plain
+    torch versions on the card too (phases 11 and 12's "before", for the
+    record)."""
+    swaps = ((coef_cuda, "coef_mosaic"), (coef_cuda, "bucket_scatter"),
+             (dwt_cuda, "dwt_lift_program"), (mct_cuda, "plane_writeframe"))
+    saved = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, name + "_ref"))
     try:
         yield
     finally:
-        coef_cuda.coef_mosaic, dwt_cuda.dwt_lift_program = saved
+        for (mod, name), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def _device_ops(fn, reps: int = 3):
@@ -787,6 +857,319 @@ def _phase11(dev, c3_stream, c2_streams):
               f"stages forced -> kernels)")
         del args
     return out
+
+
+def _job_samples(table):
+    return sum(w * h for w, h in table[:, 7:9].tolist())
+
+
+def _program_check(prog, args, frames: int, reps: int = 0):
+    """The coefficient stages and the write-out of one program against
+    their plain versions on its own lanes (`args`, on the card), by bits:
+    a BucketProgram's ``bucket_scatter`` (on its entropy stage's mu) or a
+    V3Program's ``coef_mosaic`` (on its cleanup's mu); then its one
+    ``dwt_lift_program`` call (the levels under 8x8 through ``dwt_small``,
+    the others through ``dwt_lift``, strided jobs on the flat buffer)
+    against ``dwt_lift_program_ref``; then ``plane_writeframe`` on the
+    program's own planes without MCT against ``plane_writeframe_ref``.
+    Raises on any difference, or on launches other than
+    ``prog.kernel_launches()``. Returns, per kernel, its max abs error
+    and launches a call and, with `reps`, its ms by CUDA events (launches
+    queued behind a spin), the plain version's ms (host clock, one
+    synchronised call) and its bound from the bytes these inputs need;
+    ``bucket_scatter`` also the ms of an ``index_put_`` of the same
+    values at a precomputed index (the nearest single PyTorch call, no
+    dequant); and, under "program", the program's ms a frame, device
+    operations and device-busy ms with the kernels and with the plain
+    stages forced on the card."""
+    t, want, plan = prog.transform, prog.kernel_launches(), prog.lift
+    bucket = isinstance(prog, ASM.BucketProgram)
+    out = {}
+
+    def launched(name, fn):
+        before = _KERNELS[name].launches
+        res = fn()
+        n = _KERNELS[name].launches - before
+        if n != want[name]:
+            raise RuntimeError(f"{name}: {n} launches, expected {want}")
+        return res, n
+
+    if bucket:
+        pf_idx, pf_val, bargs = args
+        mus, _oks = prog.entropy(bargs)
+        sin = (mus, prog.dims, bargs, pf_idx, pf_val, prog.total, t,
+               prog.no_istep)
+        buf, n = launched("bucket_scatter",
+                          lambda: coef_cuda.bucket_scatter(*sin))
+        ref, plain_ms = _plain(coef_cuda.bucket_scatter_ref, *sin)
+        m = dict(max_abs_err=_bits_err(buf, ref), launches_per_call=n)
+        if m["max_abs_err"]:
+            raise RuntimeError(f"bucket_scatter differs from "
+                               f"bucket_scatter_ref ({m['max_abs_err']})")
+        if reps:
+            dev = buf.device
+            idx = torch.cat([
+                (a["dest"][:a["nreal"]].long()[:, None, None]
+                 + torch.arange(h, device=dev)[None, :, None]
+                 * a["stride"][:a["nreal"]].long()[:, None, None]
+                 + torch.arange(w, device=dev)[None, None, :]).reshape(-1)
+                for a, (w, h) in zip(bargs, prog.dims)])
+            vals, yard = ref[idx], torch.zeros_like(ref)
+            n_real = idx.numel()
+            # the real samples' mu read, the flat buffer written, the
+            # prefill entries and the real lanes' six vectors read
+            lanes = sum(a["nreal"] for a in bargs)
+            m.update(ms=_cuda_ms(lambda: coef_cuda.bucket_scatter(*sin),
+                                 reps, True),
+                     plain_ms=plain_ms,
+                     bound_ms=_bound(4 * n_real + 4 * (prog.total + 1)
+                                     + 8 * pf_idx.numel() + 24 * lanes),
+                     index_put_ms=_cuda_ms(
+                         lambda: yard.index_put_((idx,), vals), reps, True),
+                     samples=n_real, buckets=len(prog.shapes), lanes=lanes)
+            del idx, vals, yard
+        out["bucket_scatter"] = m
+    else:
+        mu, _sig, _ok = ht_scan.decode_cleanup_scan_dims(
+            *(args[k] for k in _CLEANUP_ARGS), prog.qw, prog.qh,
+            prog.ms_class)
+        lay = prog.layout
+        cin = (mu, args["magb"], args["istep"], args["scale97"],
+               args["fscale"], args["pf_idx"], args["pf_val"], lay, t,
+               prog.no_istep)
+        buf, n = launched("coef_mosaic", lambda: coef_cuda.coef_mosaic(*cin))
+        ref, plain_ms = _plain(coef_cuda.coef_mosaic_ref, *cin)
+        m = dict(max_abs_err=_bits_err(buf, ref), launches_per_call=n)
+        if m["max_abs_err"]:
+            raise RuntimeError(f"coef_mosaic differs from coef_mosaic_ref "
+                               f"({m['max_abs_err']})")
+        if reps:
+            mapped = int((lay.table[:, 4] * lay.table[:, 5]).sum())
+            m.update(ms=_cuda_ms(lambda: coef_cuda.coef_mosaic(*cin), reps,
+                                 True),
+                     plain_ms=plain_ms,
+                     bound_ms=_bound(4 * mapped + 4 * lay.total
+                                     + 64 * lay.n_lanes
+                                     + 8 * args["pf_idx"].numel()),
+                     samples=lay.total, lanes=lay.n_lanes)
+        out["coef_mosaic"] = m
+    del ref
+
+    # the inverse DWT: one call, both kernels, job by job against the plain
+    # version
+    before = dwt_cuda.dwt_small.launches
+    scratch, n_lift = launched(
+        "dwt_lift", lambda: dwt_cuda.dwt_lift_program(plan, buf))
+    n_small = dwt_cuda.dwt_small.launches - before
+    if n_small != want["dwt_small"]:
+        raise RuntimeError(f"dwt_small: {n_small} launches, expected {want}")
+    ref, lift_plain_ms = _plain(dwt_cuda.dwt_lift_program_ref, plan, buf)
+    errs = dict.fromkeys(("dwt_small", "dwt_lift"), 0)
+    if _bits_err(scratch, ref):
+        for key, table in (("dwt_small", plan.small_table),
+                           ("dwt_lift", plan.table)):
+            for o, w, h in table[:, 6:9].tolist():
+                errs[key] = max(errs[key], _bits_err(scratch[o:o + w * h],
+                                                     ref[o:o + w * h]))
+        raise RuntimeError(f"dwt_lift_program differs from "
+                           f"dwt_lift_program_ref (by bits: {errs})")
+    del ref
+    small = dict(max_abs_err=0, launches_per_call=n_small,
+                 jobs=len(plan.small_table),
+                 planes=len(plan.small_chains) - 1,
+                 samples=_job_samples(plan.small_table))
+    lift = dict(max_abs_err=0, launches_per_call=n_lift,
+                jobs=len(plan.table), samples=_job_samples(plan.table),
+                strided=bucket)
+    if reps:
+        # each kernel alone (the other's jobs dropped from a copy of the
+        # plan for its plain version; the bound: each job's bands read
+        # once and its output written once)
+        base = buf.data_ptr()
+        if small["jobs"]:
+            tables = plan.small_tables_on(buf.device)
+            alone = copy.copy(plan)
+            alone.table = plan.table[:0]
+            small.update(ms=_cuda_ms(lambda: dwt_cuda.dwt_small(
+                *tables, base, scratch, t), reps, True),
+                plain_ms=_plain(dwt_cuda.dwt_lift_program_ref, alone,
+                                buf)[1],
+                bound_ms=_bound(8 * small["samples"]))
+        if lift["jobs"]:
+            alone = copy.copy(plan)
+            alone.small_table = plan.small_table[:0]
+            lift.update(ms=_cuda_ms(lambda: dwt_cuda._launch(plan, base,
+                                                             scratch),
+                                    reps, True),
+                        plain_ms=_plain(dwt_cuda.dwt_lift_program_ref, alone,
+                                        buf)[1],
+                        bound_ms=_bound(8 * lift["samples"]))
+        lift.update(call_plain_ms=lift_plain_ms, call_ms=_cuda_ms(
+            lambda: dwt_cuda.dwt_lift_program(plan, buf), reps, True))
+    out["dwt_small"], out["dwt_lift"] = small, lift
+
+    # the write-out of the planes without MCT
+    if bucket:
+        outs = [buf[off:off + ph * pw].view(ph, pw) if last is None
+                else plan.view(scratch, last)
+                for (off, ph, pw), last in zip(prog.planes, plan.last)]
+    else:
+        views = prog.layout.views(buf)
+        outs = [views[ll] if last is None else plan.view(scratch, last)
+                for ll, last in zip(prog._ll, plan.last)]
+    planes, offs = prog.writes(outs)
+    n_out = prog.frames * prog.total + 1
+    pk = torch.zeros(n_out, dtype=prog.out_dtype, device=buf.device)
+    pr = torch.zeros_like(pk)
+    win = (planes, prog.cbps, pk, offs)
+    _r, n = launched("plane_writeframe",
+                     lambda: mct_cuda.plane_writeframe(*win))
+    _r, plain_ms = _plain(mct_cuda.plane_writeframe_ref, planes, prog.cbps,
+                          pr, offs)
+    i32 = lambda x: x.to(torch.int32)
+    m = dict(max_abs_err=_bits_err(i32(pk), i32(pr)), launches_per_call=n,
+             planes=len(planes), samples=sum(p.numel() for p in planes))
+    if m["max_abs_err"]:
+        raise RuntimeError(f"plane_writeframe differs from "
+                           f"plane_writeframe_ref ({m['max_abs_err']})")
+    if reps and planes:
+        m.update(ms=_cuda_ms(lambda: mct_cuda.plane_writeframe(*win), reps,
+                             True),
+                 plain_ms=plain_ms,
+                 bound_ms=_bound(m["samples"] * (4 + pk.element_size())))
+    out["plane_writeframe"] = m
+    del outs, planes, scratch, buf, pk, pr, win
+    if reps:
+        run = (lambda: prog(*args)) if bucket else (lambda: prog(**args))
+        after = _cuda_ms(run, 5) / frames
+        ops_after, busy_after = _device_ops(run)
+        with _plain_stages():
+            before = _cuda_ms(run, 3) / frames
+            ops_before, busy_before = _device_ops(run)
+        out["program"] = dict(
+            frames=frames, ms_per_frame=after,
+            ms_per_frame_plain_stages=before, device_ops=ops_after,
+            device_ops_plain_stages=ops_before, device_busy_ms=busy_after,
+            device_busy_ms_plain_stages=busy_before)
+    return out
+
+
+def _fmt_kernel(name, m):
+    """One kernel's numbers from _program_check, for a phase 12 line."""
+    if "ms" not in m:
+        return f"{name}: no work here"
+    share = 100 * m["bound_ms"] / m["ms"]
+    return (f"{name} == plain ({m['launches_per_call']} launch(es) a call): "
+            f"kernel {m['ms']:.4f} ms, plain {m.get('plain_ms', 0):.2f} ms, "
+            f"bound {m['bound_ms']:.5f} ms (bytes), {share:.1f}% of bound")
+
+
+# BASELINE config 4's frame (7680x4320, 1024x1024 tiles) has four tile
+# shapes: 1024x1024, its right column's 512x1024 and its bottom row's
+# 1024x224 and 512x224, whose lowest DWT levels are 32x7 and 16x7 (under
+# 8x8). A 1536x1248 crop of the frame's extent holds one tile of each.
+C12_W, C12_H = 1536, 1248
+C12_SINGLE = {k: v for k, v in C4_ENC.items()
+              if k not in ("refinement", "ht_layers")}
+# the c4 decode_batch [A, B, A, B] program's device operations before
+# this phase's kernels: tools/profile_torch_v3.py --config c4 on an H100
+# 80GB HBM3 at 700 W (PERF.md, section 5)
+C4_PROGRAM_OPS_BEFORE = 2395
+
+
+def _phase12(dev, c4_data):
+    """The v2 program and the flat fallback on their kernels: on phase 7's
+    decode_batch [A, B, A, B] program and on a 1536x1248 crop of config 4
+    encoded twice (layered: a BucketProgram with levels under 8x8;
+    single-layer: a V3Program with them), ``bucket_scatter``, the flat
+    ``dwt_lift_program`` (``dwt_small`` and strided ``dwt_lift`` jobs),
+    ``coef_mosaic`` and ``plane_writeframe`` against their plain
+    versions, with times, bounds and shares, and each program with the
+    kernels and with the plain stages forced; then the crop's two streams
+    through ``Decoder.decode`` (counts reset before, read after, == the
+    source). Returns ({input: numbers}, {path: (launch counts, frames)},
+    the three kernels' ptxas lines)."""
+    t0 = time.perf_counter()
+    src = _grainy(np.random.default_rng(4044), C12_H, C12_W)
+    layered = encode_frame_htj2k(src, **C4_ENC)
+    single = encode_frame_htj2k(src, **C12_SINGLE)
+    print(f"phase 12 encode (port encoder): a {C12_W}x{C12_H} crop of "
+          f"grainy natural content (config 4's four tile shapes, cut from "
+          f"7680x4320), 2 HT layers (the v2 path) and one (a V3Program "
+          f"with levels under 8x8), {len(layered) / 1e6:.2f} and "
+          f"{len(single) / 1e6:.2f} MB, {time.perf_counter() - t0:.1f} s")
+    (_srcs, (A, B)) = c4_data
+    dec = Decoder(device=dev)
+    out = {}
+    for name, streams in (("c4_batch", [A, B, A, B]), ("crop_v2", [layered]),
+                          ("crop_v3", [single])):
+        if name == "crop_v3":
+            hdrs = [dec._parse(d) for d in streams]
+            fg = dec._fast_geom(hdrs[0])
+            prog, args = dec._v3_program(fg, [FP.parse_frame_flat(h, fg)
+                                              for h in hdrs])
+            if prog.band_direct:
+                raise RuntimeError("phase 12 crop_v3: no level under 8x8")
+        else:
+            prog, args = _v2_program(dec, streams, dev)
+        m = _program_check(prog, args, len(streams), reps=10)
+        out[name] = m
+        p = m["program"]
+        coef = "bucket_scatter" if "bucket_scatter" in m else "coef_mosaic"
+        yard = (f" (index_put_ of the same values: "
+                f"{m[coef]['index_put_ms']:.4f} ms)"
+                if "index_put_ms" in m[coef] else "")
+        print(f"phase 12 {name} ({type(prog).__name__}, {len(streams)} "
+              f"frame(s), {len(prog.planes)} planes a frame, "
+              f"{m['dwt_small']['jobs']} small and {m['dwt_lift']['jobs']} "
+              f"other DWT jobs): {_fmt_kernel(coef, m[coef])}{yard}; "
+              + "; ".join(_fmt_kernel(k, m[k]) for k in
+                          ("dwt_small", "dwt_lift", "plane_writeframe"))
+              + f"; dwt_lift_program call {m['dwt_lift']['call_ms']:.4f} "
+              f"ms; program {p['ms_per_frame_plain_stages']:.3f} -> "
+              f"{p['ms_per_frame']:.3f} ms/frame, device ops "
+              f"{p['device_ops_plain_stages']:.0f} -> {p['device_ops']:.0f} "
+              f"a call, busy {p['device_busy_ms_plain_stages']:.3f} -> "
+              f"{p['device_busy_ms']:.3f} ms (plain stages forced -> "
+              f"kernels)")
+        del args
+    c4p = out["c4_batch"]["program"]
+    print(f"phase 12 c4 batch program: {c4p['device_ops']:.0f} device "
+          f"operations against {C4_PROGRAM_OPS_BEFORE} before this phase's "
+          f"kernels ({C4_PROGRAM_OPS_BEFORE / c4p['device_ops']:.1f}x "
+          "fewer)")
+    if 20 * c4p["device_ops"] > C4_PROGRAM_OPS_BEFORE:
+        raise RuntimeError("phase 12: the c4 batch program's device "
+                           "operations fell less than twentyfold")
+
+    # the crop through the public entry point: one decoder a stream
+    paths = {}
+    for name, data, route in (("crop_v2", layered, (0, 1, 0)),
+                              ("crop_v3", single, (1, 0, 0))):
+        d = Decoder(device=dev)
+        _reset_counts()
+        frame = d.decode(data)
+        counts = _counts()
+        want = dict.fromkeys(_KERNELS, 0)
+        want.update(_v2_want(d, [data]) if route[1] else
+                    {"ht_vlc_pass": 1, "ht_magsgn_pass": 1,
+                     **_lift_want(d, data, 1)})
+        if counts != want or (d.v3_frames, d.v2_frames, d.host_frames) \
+                != route or not _same(frame, src, 10):
+            raise RuntimeError(f"phase 12 {name} decode: launches {counts} "
+                               f"(expected {want}), route "
+                               f"{(d.v3_frames, d.v2_frames, d.host_frames)}"
+                               f", == source {_same(frame, src, 10)}")
+        paths[f"c12_{name}_decode"] = (counts, 1)
+        print(f"phase 12 {name} Decoder.decode: == source "
+              f"({frame.fmt.name}), route (v3, v2, host) {route}, launches "
+              f"{counts}")
+    regs = _ptxas(build.load().log, ("scatter_kernel", "small_levels",
+                                     "writeframe_kernel"))
+    print("phase 12 ptxas: " + "; ".join(f"{k}: {v}" for k, v in
+                                         regs.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+    return out, paths, regs
 
 
 def _phase6(dev):
@@ -978,9 +1361,11 @@ def _object_buckets(dec, data):
     """As ``_v2_buckets``, for the object path's BucketProgram
     (``Decoder._launch``: ``_build_batch``, then ``_bucket_arrays`` in key
     order with the MagSgn class of each bucket's largest maxbp, as
-    ``Decoder._dispatch`` packs them)."""
+    ``Decoder._dispatch`` packs them), and that BucketProgram with its
+    arguments on the card: ("v2", shapes, bucket arrays, segments,
+    program, (pf_idx, pf_val, bucket args))."""
     hdr = dec._parse(data)
-    _geom, buckets, _prefill = DEC._build_batch(hdr, dec._parse_tiles(hdr))
+    geom, buckets, prefill = DEC._build_batch(hdr, dec._parse_tiles(hdr))
     shapes, bargs, segs = [], [], []
     for key in sorted(buckets):
         b = buckets[key]
@@ -991,7 +1376,17 @@ def _object_buckets(dec, data):
         bargs.append(args)
         segs.append((np.asarray(b.lcup), np.asarray(b.pcup),
                      *_dref_bytes([lr for _d, lr in b.dref], b.zblk)))
-    return shapes, bargs, segs
+    nz = np.nonzero(prefill[:-1])[0]
+    pf_idx = nz.astype(np.int32) if len(nz) else \
+        np.array([geom.total], np.int32)
+    pf_val = prefill[nz] if len(nz) else np.zeros(1, prefill.dtype)
+    up = lambda v: to_torch(v, dec.device) if isinstance(v, np.ndarray) \
+        else v
+    prog = DEC.bucket_program(tuple(map(tuple, shapes)), geom.key(),
+                              dec._wp(geom.cbps))
+    return ("v2", shapes, bargs, segs, prog, (
+        up(pf_idx), up(pf_val), [{k: up(v) for k, v in a.items()}
+                                 for a in bargs]))
 
 
 def _v2_kernel_checks(dev, shapes, bargs, segs):
@@ -1090,7 +1485,8 @@ def _laps_v2(dec, streams, dev):
     def upload(v2):
         gm, (shapes, bargs, pf_idx, pf_val), _accum = v2
         up = lambda v: to_torch(v, dev) if isinstance(v, np.ndarray) else v
-        return (ASM.BucketProgram(shapes, gm.key()), up(pf_idx), up(pf_val),
+        return (DEC.bucket_program(tuple(map(tuple, shapes)), gm.key()),
+                up(pf_idx), up(pf_val),
                 [{k: up(v) for k, v in a.items()} for a in bargs])
 
     laps, val = {}, None
@@ -1263,10 +1659,18 @@ def _phase7(dev):
     on_path = ("ht_vlc_pass", "ht_magsgn_pass", *_REFINE)
     _need_launched(stream_counts, on_path, "c4 decode_stream")
     _need_launched(batch_counts, on_path, "c4 decode_batch")
-    if any(c[k] for c in (stream_counts, batch_counts) for k in _LIFT):
-        raise RuntimeError(f"c4: the v2 BucketProgram launched a v3 "
-                           f"coefficient kernel: {stream_counts}, "
-                           f"{batch_counts}")
+    # the BucketProgram's coefficient stages and write-out: one
+    # bucket_scatter, dwt_lift a level (no level under 8x8 here) and one
+    # plane_writeframe a program call, no coef_mosaic
+    want_s = [_v2_want(dec, [x]) for x in (A, B)]
+    want = {"c4 decode_stream": {k: sum(w[k] for w in want_s)
+                                 for k in _PROGRAM},
+            "c4 decode_batch": {k: _v2_want(dec, batch_in)[k]
+                                for k in _PROGRAM}}
+    for (what, w), c in zip(want.items(), (stream_counts, batch_counts)):
+        if {k: c[k] for k in _PROGRAM} != w or not w["bucket_scatter"] \
+                or not w["dwt_lift"] or not w["plane_writeframe"]:
+            raise RuntimeError(f"{what}: launches {c}, expected {w}")
     print(f"phase 7 decode_stream [A, B] and decode_batch [A, B, A, B]: "
           f"every frame == source ({frames[0].fmt.name}), all 6 via the "
           f"BucketProgram; launches {stream_counts} and {batch_counts}")
@@ -1425,7 +1829,7 @@ def _phase8(dev, natural_src, natural_stream):
                            f"{plain_dec.v3_frames}, launches {batch_counts}, "
                            f"{stream_counts}, {plain_counts}")
     on_path = ("ht_vlc_pass", "ht_magsgn_pass", "rct_writeframe", "wire_pack",
-               *_LIFT)
+               "coef_mosaic", "dwt_lift")
     _need_launched(batch_counts, on_path, "c5 decode_batch")
     _need_launched(stream_counts, on_path, "c5 decode_stream")
     print(f"phase 8 decode_batch (one program, F={F}) and decode_stream with "
@@ -1663,11 +2067,17 @@ def _phase9(dev, c5_data, c4_data, single_ms):
 
 # `launches` counts, in this order, the HT cleanup pair (one VLC and one
 # MagSgn launch each), the refinement pair (SigProp then MagRef), RCT,
-# ICT and the wire pack
-KERNEL_GROUPS = ("cleanup", "refine", "rct", "ict", "wire_pack")
+# ICT, the wire pack, coef_mosaic, dwt_lift (a launch a DWT level of at
+# least 8x8), dwt_small (a launch for the levels under 8x8),
+# bucket_scatter and plane_writeframe
+KERNEL_GROUPS = ("cleanup", "refine", "rct", "ict", "wire_pack", "coef",
+                 "lift", "small", "scatter", "write")
 _GROUP_COUNTERS = {"cleanup": ("ht_vlc_pass", "ht_magsgn_pass"),
                    "refine": _REFINE, "rct": ("rct_writeframe",),
-                   "ict": ("ict_writeframe",), "wire_pack": ("wire_pack",)}
+                   "ict": ("ict_writeframe",), "wire_pack": ("wire_pack",),
+                   "coef": ("coef_mosaic",), "lift": ("dwt_lift",),
+                   "small": ("dwt_small",), "scatter": ("bucket_scatter",),
+                   "write": ("plane_writeframe",)}
 ROUTES = {"v3": (1, 0, 0), "v2": (0, 1, 0), "host": (0, 0, 1)}
 _ROUTE_NAMES = {v: k for k, v in ROUTES.items()}
 POC = [(0, 0, 2, 2, 1, "lrcp"), (2, 0, 2, 33, 1, "rlcp")]
@@ -1727,94 +2137,114 @@ def _conformance_corpus():
     CPU run of the port takes, `launches` the kernel launches of one
     decode by KERNEL_GROUPS (on the CPU, the calls of their plain
     versions), `lossless` whether the frame must equal its source."""
-    fate_route = {"ht-3pass": ("v2", (2, 2, 0, 0, 0))}
-    cases = [_Case(name, kind, img, opts, {},
-                   *(fate_route.get(name, ("v3", (1, 0, 0, 0, 0)))
-                     if kind == "ht" else ("host", (0, 0, 0, 0, 0))),
-                   opts.get("pred", 1) == 1, True)
+    # the FATE streams' routes and launches by KERNELS
+    fate = {
+        "ht-gray-64": ("v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1)),
+        "ht-gray-odd": ("v3", (1, 0, 0, 0, 0, 1, 3, 1, 0, 1)),
+        "ht-rgb": ("v3", (1, 0, 0, 0, 0, 1, 3, 1, 0, 1)),
+        "ht-16bit": ("v3", (1, 0, 0, 0, 0, 1, 3, 1, 0, 1)),
+        "ht-smooth": ("v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1)),
+        "ht-3pass": ("v2", (2, 2, 0, 0, 0, 0, 4, 1, 1, 1)),
+        "ht-tiled": ("v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1)),
+        "j2k-53": ("host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        "j2k-97int": ("host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        "j2k-layers": ("host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+    }
+    cases = [_Case(name, kind, img, opts, {}, *fate[name],
+                  opts.get("pred", 1) == 1, True)
              for name, kind, img, opts in _fate_corpus()]
     rgb3 = [_noise(10 + i, (80, 112)) for i in range(3)]
     signed = np.random.default_rng(18).integers(-512, 512, (128, 128),
                                                 dtype=np.int16)
     for name, img, enc, dec, route, launches, lossless in (
             ("ppt", _noise(1, (96, 128)), dict(ppt=True), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppt-multitile-layers-eph", _noise(2, (80, 112, 3)),
              dict(tile_width=64, tile_height=64, ppt=True, eph=True,
                   refinement=True, ht_layers=2), {}, "v2",
-             (2, 2, 0, 0, 0), True),
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             ("ppt-sop", _noise(3, (96, 128)),
              dict(ppt=True, sop=True, eph=True), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppt-tile-parts", _noise(4, (96, 128)),
-             dict(ppt=True, tp_interval=3), {}, "v3", (1, 0, 0, 0, 0), True),
+             dict(ppt=True, tp_interval=3), {}, "v3",
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppm", _noise(5, (96, 128)), dict(ppm=True), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppm-multitile", _noise(6, (80, 112, 3)),
              dict(tile_width=48, tile_height=48, ppm=True), {}, "v2",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 0, 3, 1, 1, 1), True),
             ("ppt-poc-layers", _noise(7, (96, 128)),
              dict(ppt=True, refinement=True, ht_layers=2, nreslevels=4,
-                  poc=POC), {}, "v2", (2, 2, 0, 0, 0), True),
+                  poc=POC), {}, "v2", (2, 2, 0, 0, 0, 0, 3, 0, 1, 1), True),
             ("precincts", _noise(8, (96, 128)), dict(log2_prec_width=6), {},
-             "v3", (1, 0, 0, 0, 0), True),
+             "v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("rpcl-layers-precincts", _noise(9, (96, 128)),
              dict(refinement=True, ht_layers=2, log2_prec_width=6,
-                  prog="rpcl"), {}, "v2", (2, 2, 0, 0, 0), True),
+                  prog="rpcl"), {}, "v2",
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             ("rgb-layers-multitile", rgb3,
              dict(chroma_shift=(0, 0), refinement=True, ht_layers=2,
                   tile_width=64, tile_height=64, log2_prec_width=5), {},
-             "v2", (2, 2, 0, 0, 0), True),
+             "v2", (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             ("plhd-3layer", _noise(13, (96, 128)),
-             dict(refinement=True, ht_layers=3), {}, "v2", (2, 2, 0, 0, 0),
+             dict(refinement=True, ht_layers=3), {}, "v2",
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1),
              True),
             ("plhd-single-16", _noise(14, (96, 128)),
              dict(refinement=True, ht_plhd_single=True), {}, "v2",
-             (2, 2, 0, 0, 0), True),
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             # 8x8 codeblocks are under the host area: every lane decodes
-            # on the host inside the fast lane, and nothing launches
+            # on the host inside the fast lane, and no entropy kernel
+            # launches; the flat buffer is the prefill alone (no bucket
+            # launch), then the DWT and the write-out
             ("plhd-single-8", _noise(14, (96, 128)),
              dict(refinement=True, ht_plhd_single=True, log2_cblk_width=3,
-                  log2_cblk_height=3), {}, "v2", (0, 0, 0, 0, 0), True),
+                  log2_cblk_height=3), {}, "v2",
+             (0, 0, 0, 0, 0, 0, 4, 1, 0, 1), True),
             ("lowres-r1", _noise(15, (96, 128)), dict(nreslevels=5),
-             dict(reduction_factor=1), "v3", (1, 0, 0, 0, 0), False),
+             dict(reduction_factor=1), "v3",
+             (1, 0, 0, 0, 0, 1, 3, 0, 0, 1), False),
             ("lowres-r2", _noise(15, (96, 128)), dict(nreslevels=5),
-             dict(reduction_factor=2), "v3", (1, 0, 0, 0, 0), False),
+             dict(reduction_factor=2), "v3",
+             (1, 0, 0, 0, 0, 1, 2, 0, 0, 1), False),
             ("lowres-rgb-multitile-prec", _noise(16, (80, 112, 3)),
              dict(tile_width=64, tile_height=64, nreslevels=4,
                   log2_prec_width=5, mct=True), dict(reduction_factor=1),
-             "v3", (1, 0, 4, 0, 0), False),
+             "v3", (1, 0, 4, 0, 0, 1, 2, 1, 0, 0), False),
             ("lowres-layers-poc", _noise(17, (96, 128)),
              dict(nreslevels=4, refinement=True, ht_layers=2, poc=POC),
-             dict(reduction_factor=1), "v2", (2, 2, 0, 0, 0), False),
+             dict(reduction_factor=1), "v2",
+             (2, 2, 0, 0, 0, 0, 2, 0, 1, 1), False),
             ("signed-10bit", signed,
              dict(depth=10, sgnd=True, tile_width=128, tile_height=128,
                   log2_cblk_width=6, log2_cblk_height=6), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 5, 1, 0, 1), True),
             ("roi", _lowamp(19, 128, 128, 7),
              dict(roi_shift=9, tile_width=128, tile_height=128,
                   log2_cblk_width=6, log2_cblk_height=6), {}, "host",
-             (0, 0, 0, 0, 0), True),
+             (0, 0, 0, 0, 0, 0, 0, 0, 0, 0), True),
             ("ht-mixed", _noise(20, (64, 80)), dict(ht_mixed=True), {},
-             "host", (0, 0, 0, 0, 0), True),
+             "host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0), True),
             ("max-layers-1", _noise(21, (96, 128)),
              dict(refinement=True, ht_layers=2), dict(max_layers=1), "v2",
-             (2, 0, 0, 0, 0), False),
+             (2, 0, 0, 0, 0, 0, 4, 1, 1, 1), False),
             ("cblk-128x32", _noise(22, (96, 128)),
              dict(log2_cblk_width=7, log2_cblk_height=5), {}, "host",
-             (0, 0, 0, 0, 0), True),
+             (0, 0, 0, 0, 0, 0, 0, 0, 0, 0), True),
             ("rct-rgb10", _noise(23, (96, 128, 3), 1024, np.uint16),
-             dict(depth=10, mct=True, **SMALL), {}, "v3", (1, 0, 1, 0, 0),
+             dict(depth=10, mct=True, **SMALL), {}, "v3",
+             (1, 0, 1, 0, 0, 1, 2, 0, 0, 0),
              True),
             ("ict-int", _noise(24, (96, 128, 3)),
              dict(pred=0, mct=True, **SMALL), dict(bitexact=True), "v3",
-             (1, 0, 0, 1, 0), False),
+             (1, 0, 0, 1, 0, 1, 2, 0, 0, 0), False),
             ("ict-float", _noise(24, (96, 128, 3)),
              dict(pred=0, mct=True, **SMALL), dict(bitexact=False), "v3",
-             (1, 0, 0, 1, 0), False),
+             (1, 0, 0, 1, 0, 1, 2, 0, 0, 0), False),
             ("wire-pack-12", _noise(25, (96, 128), 4096, np.uint16),
              dict(depth=12, **SMALL), dict(wire_pack=True), "v3",
-             (1, 0, 0, 0, 1), True)):
+             (1, 0, 0, 0, 1, 1, 2, 0, 0, 1), True)):
         cases.append(_Case(name, "ht", img, enc, dec, route, launches,
                            lossless, False))
     return cases
@@ -1922,8 +2352,9 @@ def _frame_problems(case, data, frame):
 def _stream_lanes(dec, data):
     """The lanes of the device program ``dec.decode(data)`` runs: ("v3",
     its V3Program, the program's arguments on the card, the decoded lanes'
-    (lcup, pcup)), ("v2", shapes, bucket arrays, per-bucket segments) for
-    the BucketProgram of the fast lane or the object path, or None."""
+    (lcup, pcup)), ("v2", shapes, bucket arrays, per-bucket segments, the
+    BucketProgram, its arguments on the card) for the fast lane's or the
+    object path's BucketProgram, or None."""
     hdr = dec._parse(data)
     if not dec.max_layers and FP.fast_profile(hdr):
         fg = dec._fast_geom(hdr)
@@ -1933,11 +2364,12 @@ def _stream_lanes(dec, data):
             if v3 is not None:
                 return ("v3", *v3,
                         _v3_segments([FP.build_v3_frame(fg, cols)]))
-            return ("v2", *_v2_buckets(dec, [data]))
+            return ("v2", *_v2_buckets(dec, [data]),
+                    *_v2_program(dec, [data], dec.device))
     tiles = dec._parse_tiles(hdr)
     if not DEC._supported_on_device(hdr, tiles):
         return None
-    return ("v2", *_object_buckets(dec, data))
+    return _object_buckets(dec, data)
 
 
 def _outcome(decode):
@@ -1979,8 +2411,7 @@ def _phase10(dev):
         if route != ROUTES[case.route]:
             problems.append(f"{case.name}: route (v3, v2, host) {route}, "
                             f"expected {ROUTES[case.route]}")
-        want = {**_expected_counts(case.launches),
-                **_lift_want(dec, data, 1)}
+        want = _expected_counts(case.launches)
         if got != want:
             problems.append(f"{case.name}: launches {got}, expected "
                             f"{want}")
@@ -1993,28 +2424,33 @@ def _phase10(dev):
     # lanes (these launches are not the main path's)
     errs = dict.fromkeys(("vlc", "magsgn", "pair", "sigprop", "magref",
                           "refine_pair", "rct", "ict", "wire_pack",
-                          *_LIFT), 0)
+                          *_PROGRAM), 0)
     lanes = collections.Counter()
     for case, data, dec in zip(corpus, streams, decoders):
-        if not case.launches[0]:
+        if case.route == "host":
             continue
         sl = _stream_lanes(dec, data)
         if sl[0] == "v3":
             _kind, prog, args, segs = sl
             c = _cleanup_check(args, segs, prog.qw, prog.qh, prog.ms_class)
             lanes["v3"] += c["lanes"]["N"]
+            checks = [_program_check(prog, args, 1)]
             if prog.band_direct:
                 lanes["band-direct v3"] += c["lanes"]["N"]
-                for k, m in _lift_check(prog, args).items():
-                    errs[k] = max(errs[k], m["max_abs_err"])
+                checks.append(_lift_check(prog, args))
+            for m in checks:
+                for k, v in m.items():
+                    errs[k] = max(errs[k], v["max_abs_err"])
             if case.launches[2]:
                 outs, _ok = prog.decode_planes(**args)
                 errs["rct"] = max(errs["rct"],
                                   _rct_check(outs[:3])["max_abs_err"])
                 del outs
         else:
-            _kind, shapes, bargs, segs = sl
+            _kind, shapes, bargs, segs, prog, args = sl
             c, ref, info = _v2_kernel_checks(dev, shapes, bargs, segs)
+            for k, v in _program_check(prog, args, 1).items():
+                errs[k] = max(errs[k], v["max_abs_err"])
             lanes["v2"] += sum(a["nreal"] for a in bargs)
             lanes["refined buckets"] += info["buckets"]
             for k, key in (("sigprop", "sigprop"), ("magref", "magref"),
@@ -2063,7 +2499,7 @@ def _phase10(dev):
     host = [host_decoder.decode_frame(d, bitexact=True).tobytes()
             for d in batch]
     if got != singles or got != host or dec.v3_frames != 3 \
-            or batch_counts != {**_expected_counts((1, 0, 0, 0, 0)),
+            or batch_counts != {**_expected_counts((1,) + (0,) * 9),
                                 **prog.kernel_launches()} \
             or not inert:
         problems.append(f"batch of 3: equal to the singles "
@@ -2125,9 +2561,11 @@ def _ok_line():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["conformance"],
-                    help="run phases 1, 2 and 10 alone (the corpus on the "
-                         "card, e.g. under compute-sanitizer)")
+    ap.add_argument("--only", choices=["conformance", "programs"],
+                    help="conformance: phases 1, 2 and 10 alone (the corpus "
+                         "on the card, e.g. under compute-sanitizer); "
+                         "programs: phases 1, 2 and 12 (with phase 7's two "
+                         "c4 frames)")
     only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2149,6 +2587,11 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s, from {native.NATIVE_DIR})")
     if only == "conformance":
         _phase10(dev)
+        print(card)
+        print(_ok_line())
+        return 0
+    if only == "programs":
+        _phase12(dev, _c4_streams())
         print(card)
         print(_ok_line())
         return 0
@@ -2261,9 +2704,10 @@ def main(argv=None) -> int:
     c10, c10_paths = _phase10(dev)
     # ---- phase 11: the coefficient stages' kernels on c3 and c2
     c11 = _phase11(dev, streams["natural"], c2_streams)
+    # ---- phase 12: the v2 program and the flat fallback on config 4
+    c12, c12_paths, c12_regs = _phase12(dev, c4_data)
 
-    c10_errs = {"coef_mosaic": c10["coef_mosaic"],
-                "dwt_lift": c10["dwt_lift"], "ht_vlc_pass": c10["vlc"],
+    c10_errs = {**{k: c10[k] for k in _PROGRAM}, "ht_vlc_pass": c10["vlc"],
                 "ht_magsgn_pass": max(c10["magsgn"], c10["pair"]),
                 "rct_writeframe": c10["rct"], "ict_writeframe": c10["ict"],
                 "ht_sigprop_pass": c10["sigprop"],
@@ -2301,21 +2745,50 @@ def main(argv=None) -> int:
           for k, where in (
               ("coef_mosaic", "ffmpeg_ht_tpu/models/assembly.py:326"),
               ("dwt_lift", "ffmpeg_ht_tpu/ops/dwt_jax.py:330"))],
+        # phase 12: the v2 program's and the flat fallback's kernels, each
+        # timed on its main path's program (the c4 decode_batch for
+        # bucket_scatter and plane_writeframe, the crop's V3Program for
+        # dwt_small); no single PyTorch call computes their functions (an
+        # index_put_ of bucket_scatter's values at a precomputed index is
+        # its yardstick, without the dequant)
+        *[dict(name=k, route="cuda",
+               source=f"ffmpeg_ht_tpu_torch/csrc/{k}.cu", replaces=where,
+               **{f: v for f, v in c12[main][k].items()
+                  if f != "index_put_ms"},
+               index_put_yardstick_ms=c12[main][k].get("index_put_ms"),
+               ptxas={r: v for r, v in c12_regs.items() if r.startswith(kn)},
+               phase12={c: c12[c][k] for c in c12 if k in c12[c]},
+               program={c: c12[c]["program"] for c in c12})
+          for k, where, main, kn in (
+              ("bucket_scatter", "ffmpeg_ht_tpu/models/decoder.py:481",
+               "c4_batch", "scatter_kernel"),
+              ("dwt_small", "ffmpeg_ht_tpu/ops/dwt_jax.py:362", "crop_v3",
+               "small_levels"),
+              ("plane_writeframe", "ffmpeg_ht_tpu/models/assembly.py:389",
+               "c4_batch", "writeframe_kernel"))],
     ]
+    for k in kernels:
+        if k["name"] in ("coef_mosaic", "dwt_lift"):
+            k["phase12"] = {c: c12[c][k["name"]] for c in c12
+                            if k["name"] in c12[c]}
     # every path's run is read between a reset and the next; `launches`
     # is the count on the kernel's main path, the path whose shapes its
     # ms and bound_ms were measured at: c3 decode_stream (phase 5) for the
     # kernels of the 5/3 slice and the coefficient stages' (phase 11
     # measures them on that path's program), c2 decode_batch (phase 6) for
-    # ICT, c4
-    # decode_batch (phase 7) for the two refinement kernels, c5
-    # decode_batch (phase 8) for the wire pack
+    # ICT, c4 decode_batch (phase 7) for the two refinement kernels,
+    # bucket_scatter and plane_writeframe (phase 12 measures them on that
+    # path's program), c5 decode_batch (phase 8) for the wire pack, the
+    # crop's single-layer decode (phase 12) for dwt_small
     paths = {"c3_decode_stream": (launches, len(order)), **c2_paths,
-             **c4_paths, **c5_paths, **c9_paths, **c10_paths}
+             **c4_paths, **c5_paths, **c9_paths, **c10_paths, **c12_paths}
     main_paths = {"ict_writeframe": "c2_decode_batch",
                   "ht_sigprop_pass": "c4_decode_batch",
                   "ht_magref_pass": "c4_decode_batch",
-                  "wire_pack": "c5_decode_batch"}
+                  "wire_pack": "c5_decode_batch",
+                  "bucket_scatter": "c4_decode_batch",
+                  "plane_writeframe": "c4_decode_batch",
+                  "dwt_small": "c12_crop_v3_decode"}
     for k in kernels:
         main_path = main_paths.get(k["name"], "c3_decode_stream")
         n = {p: c[k["name"]] for p, (c, _f) in paths.items()}
@@ -2325,11 +2798,13 @@ def main(argv=None) -> int:
             k.get(s, {}).get("max_abs_err", 0)
             for s in ("c2_decode_batch_shapes", "c2_decode_stream_int_shapes",
                       "c4_decode_batch_buckets", "c5_shard_lanes",
-                      "c10_conformance")])
+                      "c10_conformance")]
+            + [v["max_abs_err"] for v in k.get("phase12", {}).values()])
         # no single PyTorch call computes an HT cleanup pass, SigProp /
         # MagRef, RCT or ICT with DC shift, clip and the narrow pack, the
-        # 32-sample-group bit pack, the dequant + prefill + band mosaic,
-        # nor a lifting level of the JPEG 2000 inverse DWT
+        # 32-sample-group bit pack, the dequant + prefill + band mosaic or
+        # scatter, a DC shift + clip + narrow pack of many planes, nor a
+        # lifting level of the JPEG 2000 inverse DWT
         k.update(main_path=main_path, launches=n[main_path],
                  launches_per_frame=per_frame[main_path],
                  launches_by_path=n, launches_per_frame_by_path=per_frame,

@@ -41,41 +41,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dequant.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMapCols = 6;   // off, band_w, by0, bx0, h, w
-
-__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-
-template <int Mode>
-__device__ __forceinline__ int32_t dequant(int32_t v, int magb, int istep,
-                                           int scale97, float fscale,
-                                           int no_istep) {
-  const bool neg = v < 0;
-  const int32_t mag = v & 0x7FFFFFFF;
-  if (Mode == 2) {
-    const float m = __int2float_rn(neg ? -mag : mag);
-    return __float_as_int(__fmul_rn(m, fscale));
-  }
-  if (Mode == 1) {
-    const int32_t m = wadd(neg ? -mag : mag, 32) >> 6;
-    const int64_t p = (int64_t)m * (int64_t)scale97;
-    const int64_t c = p > 0 ? (p + (1 << 15)) >> 16
-                            : (p + (1 << 15) - 1) >> 16;
-    return (int32_t)(uint32_t)(uint64_t)c;
-  }
-  // reversible; a shift outside [0, 31) leaves 0 of a non-negative
-  // magnitude, as torch's and XLA's shifts do
-  const int sh = 31 - magb;
-  const int32_t m = (sh < 0 || sh >= 31) ? 0 : mag >> sh;
-  int32_t c = neg ? -m : m;
-  if (!no_istep && istep != 32768)
-    c = (int32_t)((uint32_t)c * (uint32_t)istep) >> 16;
-  return c;
-}
 
 template <int Mode>
 __global__ void __launch_bounds__(kThreads)

@@ -9,8 +9,11 @@
 // is the wrapper and holds the tile shape and halo passed in here.
 //
 // A job is one plane's level: the previous LL (nEv x nEh), HL (nEv x nOh),
-// LH (nOv x nEh) and HH (nOv x nOh), contiguous, and the output, the next
-// LL (h x w, w = nEh + nOh, h = nEv + nOv). The level covers the absolute
+// LH (nOv x nEh) and HH (nOv x nOh), each a band of rows at a row stride
+// (the LL's own, one the other three share, or each band's own width: a
+// band buffer's bands, or a flat quadrant pyramid's, where every band is
+// a corner of the plane), and the output, the next
+// LL (h x w, w = nEh + nOh, h = nEv + nOv), contiguous. The level covers the absolute
 // positions [mh, mh + w) across and [mv, mv + h) down (mh, mv its origin
 // parities); E (L) samples sit at even positions, O (H) samples at odd
 // ones. Rows are lifted first (LL | HL, LH | HH), then columns, and the
@@ -60,14 +63,15 @@
 //     (griddepcontrol.wait) before it reads anything. A small level
 //     costs ~8 us, most of it one tile's load-lift-store chain.
 //
-// Arithmetic follows the plain version exactly: int32 with wraparound,
-// the Q16 products of the integer 9/7 in int64 where the reference widens
-// them, and the float 9/7 in float32 with one rounding per operation in
-// the order of _poly_sr97f, spelt __fadd_rn / __fsub_rn / __fmul_rn so
-// that nvcc cannot contract a multiply and an add into one FMA.
+// Levels under 8 in a dimension are csrc/dwt_small.cu's; a plane's small
+// levels run before its first level here (ops/dwt_cuda.dwt_lift_program).
+// Arithmetic (csrc/dwt_common.cuh) follows the plain version exactly, the
+// float 9/7 in the order of _poly_sr97f.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "dwt_common.cuh"
 
 namespace {
 
@@ -75,10 +79,11 @@ constexpr int kThreads = 256;            // 8 warps; one window column each
 constexpr int kPairs = 128;              // (E, O) pairs of a window row
 constexpr int kOddOff = kPairs + 16;     // a window row's O half
 constexpr int kRowWords = kOddOff + kPairs;
-constexpr int kMaxJobs = 48;             // jobs a launch (3.5 KB of params)
+constexpr int kMaxJobs = 48;             // jobs a launch (3.8 KB of params,
+                                         // within the classic 4 KB limit)
 constexpr int kRows = 40;                // window rows: a 32-row tile and
                                          // the 9/7's halos
-constexpr int kJobInts = 12;             // int64 values a job in the table
+constexpr int kJobInts = 14;             // int64 values a job in the table
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -87,75 +92,14 @@ struct Job {
   int w, h, mh, mv;
   int preshift, ll_out;                  // ll_out: ll lies in `out`
   int tiles_x, tile0;                    // tile columns; first tile
+  int ll_stride, band_stride;            // row strides in samples; 0: the
+                                         // band's own width
 };
 
 struct Launch {
   Job j[kMaxJobs];
   int njobs, ntiles;
   int tile_rows, tile_cols, halo;        // halo in samples (even)
-};
-
-__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-
-__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a - (uint32_t)b);
-}
-
-// (coef * (a + b) + 2^15) >> 16 in int64, truncated to int32 (_q16j)
-__device__ __forceinline__ int32_t q16(int64_t coef, int32_t a, int32_t b) {
-  const int64_t s = (int64_t)a + (int64_t)b;
-  return (int32_t)(uint32_t)(uint64_t)((coef * s + (1 << 15)) >> 16);
-}
-
-// A transform: its lifting steps, alternately E from O (even steps) and
-// O from E (odd steps); x is the sample updated, a and b its neighbours.
-struct Lift53 {
-  using T = int32_t;
-  static constexpr int kSteps = 2;
-  __device__ static T step(int st, T x, T a, T b) {
-    if (st == 0) return wsub(x, wadd(wadd(a, b), 2) >> 2);
-    return wadd(x, wadd(a, b) >> 1);
-  }
-  __device__ static T preshift(T v) { return v; }
-};
-
-struct Lift97i {
-  using T = int32_t;
-  static constexpr int kSteps = 4;
-  __device__ static T step(int st, T x, T a, T b) {
-    switch (st) {
-      case 0: return wsub(x, q16(29066, a, b));       // I_LFTG_DELTA
-      case 1: return wsub(x, q16(57862, a, b));       // I_LFTG_GAMMA
-      case 2: return wadd(x, q16(3472, a, b));        // I_LFTG_BETA
-      default: {                                      // I_LFTG_ALPHA'
-        const int64_t s = (int64_t)a + (int64_t)b;
-        const int32_t d = wadd((int32_t)(uint32_t)(uint64_t)s,
-                               (int32_t)(uint32_t)(uint64_t)(
-                                   (38413 * s + (1 << 15)) >> 16));
-        return wadd(x, d);
-      }
-    }
-  }
-  __device__ static T preshift(T v) {                // I_PRESHIFT = 8
-    return (int32_t)(uint32_t)(uint64_t)(((int64_t)v + 128) >> 8);
-  }
-};
-
-struct Lift97f {
-  using T = float;
-  static constexpr int kSteps = 4;
-  __device__ static T step(int st, T x, T a, T b) {
-    const float s = __fadd_rn(a, b);
-    switch (st) {                                     // float32 constants
-      case 0: return __fsub_rn(x, __fmul_rn(0x1.c626aap-2f, s));  // DELTA
-      case 1: return __fsub_rn(x, __fmul_rn(0x1.c40cecp-1f, s));  // GAMMA
-      case 2: return __fadd_rn(x, __fmul_rn(0x1.b2035cp-5f, s));  // BETA
-      default: return __fadd_rn(x, __fmul_rn(0x1.960ce6p+0f, s)); // ALPHA
-    }
-  }
-  __device__ static T preshift(T v) { return v; }
 };
 
 // Where a tile lies: its job's bands and output, and the absolute row
@@ -168,6 +112,7 @@ struct Tile {
   char* out;
   int w, h, mh, mv, preshift;
   int a0, b0;
+  int64_t lls, hls, lhs, hhs;            // the bands' row strides
 };
 
 __device__ __forceinline__ Tile locate(const Launch& L, int t,
@@ -183,6 +128,11 @@ __device__ __forceinline__ Tile locate(const Launch& L, int t,
   g.hh = in + J.hh;
   g.out = out + J.out;
   g.w = J.w, g.h = J.h, g.mh = J.mh, g.mv = J.mv, g.preshift = J.preshift;
+  const int nE = (J.w + 1 - J.mh) >> 1, nO = J.w - nE;
+  g.lls = J.ll_stride ? J.ll_stride : nE;
+  g.hls = J.band_stride ? J.band_stride : nO;
+  g.lhs = J.band_stride ? J.band_stride : nE;
+  g.hhs = J.band_stride ? J.band_stride : nO;
   g.a0 = ty * L.tile_rows - L.halo;
   g.b0 = tx * L.tile_cols - L.halo;
   return g;
@@ -212,8 +162,8 @@ __device__ void load_window(const Tile& g, const Launch& L, T* buf) {
   const int xm = mirror(x, g.mh, g.mh + g.w);
   const int col = odd ? ((xm - 1) >> 1) - (g.mh >> 1)
                       : (xm >> 1) - ((g.mh + 1) >> 1);
-  const int nE = (g.w + 1 - g.mh) >> 1;
-  const int64_t stride = odd ? g.w - nE : nE;
+  const int64_t e_stride = odd ? g.hls : g.lls;
+  const int64_t o_stride = odd ? g.hhs : g.lhs;
   const T* e_rows = reinterpret_cast<const T*>(odd ? g.hl : g.ll) + col;
   const T* o_rows = reinterpret_cast<const T*>(odd ? g.hh : g.lh) + col;
   T* dst = buf + (odd ? kOddOff : 0) + p;
@@ -222,8 +172,8 @@ __device__ void load_window(const Tile& g, const Launch& L, T* buf) {
     if (y < g.mv - halo || y >= g.mv + g.h + halo) continue;
     const int ym = mirror(y, g.mv, g.mv + g.h);
     const T* src = (r & 1)
-        ? o_rows + (((ym - 1) >> 1) - (g.mv >> 1)) * stride
-        : e_rows + ((ym >> 1) - ((g.mv + 1) >> 1)) * stride;
+        ? o_rows + (((ym - 1) >> 1) - (g.mv >> 1)) * o_stride
+        : e_rows + ((ym >> 1) - ((g.mv + 1) >> 1)) * e_stride;
     cp_async4(dst + r * kRowWords, src);
   }
 }
@@ -373,7 +323,9 @@ int launch(const Launch& L, const char* in, char* out, cudaStream_t s) {
 
 // Plain C entry point (ctypes). `table`: host array of kJobInts int64
 // values a job, sorted by level: level, ll_out, ll, hl, lh, hh, out, w,
-// h, mh, mv, preshift. ll, hl, lh, hh, out are element offsets (int32
+// h, mh, mv, preshift, ll_stride, band_stride (the LL's row stride and
+// the one HL, LH and HH share, in samples; 0 for a band's own width).
+// ll, hl, lh, hh, out are element offsets (int32
 // in modes 0 and 1, float32 in mode 2) from `in`, or from `out` for ll
 // when ll_out is 1 (a previous level's output) and for out; w, h the
 // output's width and height, mh, mv the level's origin parities,
@@ -387,7 +339,8 @@ int launch(const Launch& L, const char* in, char* out, cudaStream_t s) {
 // An output must not overlap an input of its level. Returns the first
 // cudaGetLastError() that is not cudaSuccess, or cudaErrorInvalidValue
 // for an unknown mode, a level below 8 x 8 (the flat fallback's), a
-// parity or flag other than 0 or 1, a preshift outside mode 1, levels
+// parity or flag other than 0 or 1, a preshift outside mode 1, a
+// negative or over-int32 stride, levels
 // out of order, or a tile shape and halo the window does not hold.
 extern "C" int dwt_lift_launch(const int64_t* table, int njobs,
                                const void* in, void* out, int mode,
@@ -415,7 +368,8 @@ extern "C" int dwt_lift_launch(const int64_t* table, int njobs,
       const int64_t* d = table + (int64_t)j0 * kJobInts;
       if (d[7] < 8 || d[8] < 8 || d[7] > INT32_MAX / 2 || d[8] > INT32_MAX / 2
           || (d[1] & ~1) || (d[9] & ~1) || (d[10] & ~1) || (d[11] & ~1)
-          || (d[11] && mode != 1))
+          || (d[11] && mode != 1) || d[12] < 0 || d[12] > INT32_MAX
+          || d[13] < 0 || d[13] > INT32_MAX)
         return (int)cudaErrorInvalidValue;
       Job& J = L.j[L.njobs++];
       J.ll_out = (int)d[1];
@@ -423,6 +377,7 @@ extern "C" int dwt_lift_launch(const int64_t* table, int njobs,
       J.hh = d[5] * size, J.out = d[6] * size;
       J.w = (int)d[7], J.h = (int)d[8], J.mh = (int)d[9], J.mv = (int)d[10];
       J.preshift = (int)d[11];
+      J.ll_stride = (int)d[12], J.band_stride = (int)d[13];
       J.tiles_x = (J.mh + J.w + tile_cols - 1) / tile_cols;
       J.tile0 = (int)tiles;
       tiles += (int64_t)J.tiles_x * ((J.mv + J.h + tile_rows - 1) / tile_rows);

@@ -12,13 +12,12 @@ program (counterpart of ``_entropy_stage`` + ``_compiled_assembly`` of
   3. the sparse prefill scatter of host-decoded lanes;
   4. the band mosaics: every subband cut out of the lane rasters
      (``AssemblyPlan`` from ``build_plan`` below);
-  5. the inverse DWT: band-direct when every level of every plane is at
-     least 8x8, else the quadrant pyramid is composed (``_compose_plane``)
-     and takes the flat fallback (ops/dwt_torch);
+  5. the inverse DWT of every level of every plane (a level under 8 in
+     a dimension is a small job, the others band-direct lifting);
   6. RCT (5/3, a launch per frame) or ICT (9/7, one launch for the F
      frames) + DC shift + clip written straight into the packed output
-     (ops/mct_cuda), or ``rint`` (float) + DC shift + clip for planes
-     without MCT;
+     (ops/mct_cuda), and ``rint`` (float) + DC shift + clip of every
+     plane without MCT in one ``plane_writeframe`` call;
   7. one packed uint8 / uint16 buffer (uint16 held as int16 bits) whose
      last element is the all-lanes ok flag; with ``wire_pack`` (9..15-bit
      samples) that buffer is bit-packed into int32 words holding uint32
@@ -26,21 +25,23 @@ program (counterpart of ``_entropy_stage`` + ``_compiled_assembly`` of
      ``csrc/wire_pack.cu``), as the reference's ``wire_pack`` option
      does (assembly.py:436-441, decoder.py:595-601).
 
-On the band-direct route, stages 2-4 are one call of
-``ops/coef_cuda.coef_mosaic`` for the F frames (the kernel
-``csrc/coef_mosaic.cu`` on the card) into one band buffer laid out by a
-``CoefLayout`` built once per program, and stage 5 is one call of
-``ops/dwt_cuda.dwt_lift_program`` for every level of every plane of every
-frame, from a ``LiftPlan`` built beside the layout (the kernel
-``csrc/dwt_lift.cu``, a launch a level); CPU tensors take their plain
-versions, the torch ops of ops/coef_cuda and ops/dwt_torch. The flat fallback runs
-stages 2-5 as torch ops on either device.
+Stages 2-4 are one call of ``ops/coef_cuda.coef_mosaic`` for the F
+frames (the kernel ``csrc/coef_mosaic.cu`` on the card) into one band
+buffer laid out by a ``CoefLayout`` built once per program, and stage 5
+is one call of ``ops/dwt_cuda.dwt_lift_program`` for every level of every
+plane of every frame, from a ``LiftPlan`` built beside the layout (the
+kernels ``csrc/dwt_small.cu``, a launch for the levels under 8x8, where
+the JAX program takes its flat fallback, and ``csrc/dwt_lift.cu``, a
+launch a level); CPU tensors take their plain versions, the torch ops of
+ops/coef_cuda, ops/dwt_torch and ops/mct_cuda.
 
 ``BucketProgram`` runs the cleanup per bucket of same-shape codeblocks
-(plus SigProp / MagRef, ops/ht_refine, on refined buckets), the same
-dequant, a scatter of every lane into the flat coefficient buffer, the
-flat inverse DWT per plane, and the same tail (steps 6-7, shared in
-``_Program``).
+(plus SigProp / MagRef, ops/ht_refine, on refined buckets); one
+``bucket_scatter`` call (the kernel ``csrc/bucket_scatter.cu``) for the
+dequant and the scatter of every lane into the flat coefficient buffer
+after the prefill; one ``dwt_lift_program`` call on the planes' quadrant
+pyramids in that buffer (``flat_lift_plan``: strided jobs); and the same
+tail (steps 6-7, shared in ``_Program``).
 
 The assembly plan (``PrecPlan`` .. ``AssemblyPlan``, ``build_plan``) is
 copied verbatim from the reference module: numpy only, static per
@@ -57,16 +58,14 @@ from typing import Optional, Tuple
 import torch
 
 from ffmpeg_ht_tpu_torch.codestream import markers as mk
-from ffmpeg_ht_tpu_torch.ops import coef_cuda, dwt_cuda
+from ffmpeg_ht_tpu_torch.ops import coef_cuda, dwt_cuda, mct_cuda
 from ffmpeg_ht_tpu_torch.ops.coef_cuda import CoefLayout
 from ffmpeg_ht_tpu_torch.ops.dwt import dwt_levels
-from ffmpeg_ht_tpu_torch.ops.dwt_torch import (dwt_decode_flat,
-                                               dwt_poly_capable)
+from ffmpeg_ht_tpu_torch.ops.dwt_torch import dwt_poly_capable
 from ffmpeg_ht_tpu_torch.ops.ht_refine import decode_refinement_scan
 from ffmpeg_ht_tpu_torch.ops.ht_scan import (decode_cleanup_scan_dims,
                                              decode_cleanup_scan_sig)
-from ffmpeg_ht_tpu_torch.ops.mct_cuda import (dc_shift_clip, ict_writeframe,
-                                              narrow, rct_writeframe)
+from ffmpeg_ht_tpu_torch.ops.mct_cuda import ict_writeframe, rct_writeframe
 from ffmpeg_ht_tpu_torch.ops.wirepack import pack_words
 
 
@@ -229,7 +228,9 @@ def build_plan(fg) -> Optional[AssemblyPlan]:
 
 def _compose_plane(ras, plane: PlanePlan, lane_off: int):
     """The quadrant pyramid of one plane from its band mosaics
-    (assembly.py:224-236), for the flat-DWT fallback."""
+    (assembly.py:224-236): the flat-DWT fallback's input, as the JAX
+    program composes it (the tests hold the programs' band route against
+    it and ``dwt_torch.dwt_decode_flat``)."""
     mosaic = coef_cuda.mosaic_band
     ll, lvls = plane.levels
     p = mosaic(ras, ll, lane_off)
@@ -241,10 +242,14 @@ def _compose_plane(ras, plane: PlanePlan, lane_off: int):
     return p
 
 
+def _border(border):
+    return [[border[0][0], border[0][1]], [border[1][0], border[1][1]]]
+
+
 class _Program:
-    """What the v3 and the v2 programs share: the geometry, the dequant of
-    the mu words and the MCT / DC shift / clip / pack tail (with
-    `wire_pack`, the bit-packed words of 8 < cbps < 16 samples)."""
+    """What the v3 and the v2 programs share: the geometry and the MCT /
+    DC shift / clip / pack tail (with `wire_pack`, the bit-packed words
+    of 8 < cbps < 16 samples)."""
 
     def __init__(self, geom_key: Tuple, frames: int, no_istep: bool,
                  wire_pack: bool = False):
@@ -262,43 +267,80 @@ class _Program:
         self.frames, self.no_istep = frames, no_istep
         self.out_dtype = torch.uint8 if cbps <= 8 else torch.int16
 
+    def _mct(self, tileno: int) -> bool:
+        """Whether tile `tileno`'s first three planes take RCT / ICT: its
+        MCT flag and three planes of one (h, w)."""
+        idxs = self.tci[tileno]
+        if not self.mct_flags[tileno] or len(idxs) < 3:
+            return False
+        shapes = [tuple(self.planes[i][1:]) for i in idxs[:3]]
+        return shapes[0] == shapes[1] == shapes[2]
+
+    def kernel_launches(self):
+        """{counter: launches} one call of the program adds on the card:
+        its coefficient stage (``coef_launches``), ``dwt_small`` once
+        when a plane has a level under 8x8, ``dwt_lift`` once a level,
+        ``plane_writeframe`` once each ``mct_cuda.MAX_PLANES`` planes
+        without MCT (none when every plane has MCT)."""
+        counts = {"coef_mosaic": 0, "bucket_scatter": 0,
+                  "dwt_lift": self.lift.lift_launches,
+                  "dwt_small": self.lift.small_launches,
+                  "plane_writeframe": mct_cuda.plane_writeframe_launches(
+                      sum(1 for _f, i in self._writes()
+                          if self.planes[i][1] * self.planes[i][2]))}
+        counts[self.COEF_STAGE] = self.coef_launches()
+        return counts
+
+    def coef_launches(self) -> int:
+        """Launches of the coefficient stage a call counts:
+        ``coef_mosaic`` once."""
+        return 1
+
+    def _writes(self):
+        """(frame, plane index) of every plane that no MCT takes, of every
+        frame, in the order of the pack's one ``plane_writeframe``
+        call."""
+        return [(f, i) for tileno, idxs in enumerate(self.tci)
+                for f in range(self.frames)
+                for i in (idxs[3:] if self._mct(tileno) else idxs)]
+
+    def writes(self, outs):
+        """(planes, their offsets in the packed buffer) of ``_writes``."""
+        n = len(self.planes)
+        return ([outs[f * n + i] for f, i in self._writes()],
+                [f * self.total + self.planes[i][0]
+                 for f, i in self._writes()])
+
     def pack(self, outs, ok):
         """Stages 6-7: MCT / DC shift / clip into the packed buffer. Plane
         i of frame f starts at f * total + its geometry offset; the ICT of
-        a tile runs for every frame in one call. With ``wire_pack`` the
-        buffer, flag included, is packed into words (one launch)."""
+        a tile runs for every frame in one call, and every plane without
+        MCT of every frame goes through one ``plane_writeframe`` call.
+        With ``wire_pack`` the buffer, flag included, is packed into
+        words (one launch)."""
         total, F = self.total, self.frames
         packed = torch.empty(F * total + 1, dtype=self.out_dtype,
                              device=ok.device)
-
-        def put(c, pos):
-            c = dc_shift_clip(c, self.cbps)
-            packed[pos:pos + c.numel()] = narrow(c, self.out_dtype) \
-                .reshape(-1)
-
         nplanes = len(self.planes)
         for tileno, idxs in enumerate(self.tci):
-            first = [outs[i] for i in idxs[:3]]
-            rest = idxs
-            if self.mct_flags[tileno] and len(idxs) >= 3 and \
-                    first[0].shape == first[1].shape == first[2].shape:
-                base, n = self.planes[idxs[0]][0], first[0].numel()
-                ys = [tuple(outs[f * nplanes + i].contiguous()
-                            for i in idxs[:3]) for f in range(F)]
-                if self.transform == mk.DWT53:
-                    for f, y in enumerate(ys):
-                        pos = f * total + base
-                        rct_writeframe(*y, self.cbps,
-                                       out=packed[pos:pos + 3 * n])
-                else:
-                    ict_writeframe(ys, self.cbps, self.transform,
-                                   out=packed[base:(F - 1) * total + base
-                                              + 3 * n],
-                                   frame_stride=total)
-                rest = idxs[3:]
-            for f in range(F):
-                for i in rest:
-                    put(outs[f * nplanes + i], f * total + self.planes[i][0])
+            if not self._mct(tileno):
+                continue
+            base, n = self.planes[idxs[0]][0], outs[idxs[0]].numel()
+            ys = [tuple(outs[f * nplanes + i].contiguous()
+                        for i in idxs[:3]) for f in range(F)]
+            if self.transform == mk.DWT53:
+                for f, y in enumerate(ys):
+                    pos = f * total + base
+                    rct_writeframe(*y, self.cbps,
+                                   out=packed[pos:pos + 3 * n])
+            else:
+                ict_writeframe(ys, self.cbps, self.transform,
+                               out=packed[base:(F - 1) * total + base
+                                          + 3 * n],
+                               frame_stride=total)
+        planes, offsets = self.writes(outs)
+        if planes:
+            mct_cuda.plane_writeframe(planes, self.cbps, packed, offsets)
         # ok flag: inert and pad lanes pass trivially
         packed[F * total:].copy_(ok.all().reshape(1))
         if self.wire_pack:
@@ -317,21 +359,23 @@ class V3Program(_Program):
     frames' flat lane rasters and its pads point one past their end.
     """
 
+    COEF_STAGE = "coef_mosaic"
+
     def __init__(self, plan: AssemblyPlan, geom_key: Tuple, qw: int,
                  qh: int, ms_class: int, n_pad: int, frames: int,
                  no_istep: bool = False, wire_pack: bool = False):
         super().__init__(geom_key, frames, no_istep, wire_pack)
-        # band-direct inverse DWT when every level of every plane is at
-        # least 8x8 (assembly.py:283-286); else the flat fallback
+        # whether every level of every plane is at least 8x8 (the JAX
+        # program's band-direct test, assembly.py:283-286); else the JAX
+        # program takes the flat fallback, and here the small levels are
+        # small jobs of the same LiftPlan
         self.band_direct = all(
-            nd == 0 or dwt_poly_capable(
-                [[b[0][0], b[0][1]], [b[1][0], b[1][1]]], nd)
+            nd == 0 or dwt_poly_capable(_border(b), nd)
             for b, nd in zip(self.borders, self.ndecs))
         self.plan = plan
         self.qw, self.qh, self.ms_class = qw, qh, ms_class
         self.n_pad = n_pad
-        if self.band_direct:
-            self._band_schedule()
+        self._band_schedule()
 
     def _band_schedule(self):
         """The band buffer's layout (every band of every plane of every
@@ -350,9 +394,7 @@ class V3Program(_Program):
                     idx.append(tuple(range(len(bands), len(bands) + 3)))
                     bands.extend((bb, f * self.n_pad) for bb in lvl)
                 self._lvls.append(idx)
-                b = [[border[0][0], border[0][1]],
-                     [border[1][0], border[1][1]]]
-                self._mods.append(dwt_levels(b, ndec)[1])
+                self._mods.append(dwt_levels(_border(border), ndec)[1])
         self.layout = CoefLayout(bands, self.frames * self.n_pad,
                                  self.plan.bh, self.plan.bw)
         self.levels = max(map(len, self._lvls))
@@ -363,20 +405,13 @@ class V3Program(_Program):
     def level_jobs(self, lev: int, outs, bands):
         """(the planes that have level `lev`, their ``dwt_lift`` jobs),
         from every plane's current LL `outs` and the band views `bands`;
-        the integer 9/7's final shift rides on each plane's last level."""
+        the integer 9/7's final shift rides on each plane's last level
+        (a band-direct program's levels)."""
         todo = [i for i, idx in enumerate(self._lvls) if lev < len(idx)]
         return todo, [(outs[i], *(bands[b] for b in self._lvls[i][lev]),
                        *self._mods[i][lev],
                        self.transform == mk.DWT97_INT
                        and lev == len(self._lvls[i]) - 1) for i in todo]
-
-    def kernel_launches(self):
-        """{counter: launches} one call of the program adds to the
-        ``coef_mosaic`` and ``dwt_lift`` counters on the card (for
-        ``dwt_lift``, a launch a DWT level)."""
-        if not self.band_direct:
-            return {"coef_mosaic": 0, "dwt_lift": 0}
-        return {"coef_mosaic": 1, "dwt_lift": self.lift.launches}
 
     def __call__(self, **args):
         return self.pack(*self.decode_planes(**args))
@@ -385,42 +420,52 @@ class V3Program(_Program):
                       qws, qhs, magb, istep, scale97, fscale, pf_idx,
                       pf_val):
         """Stages 1-5: (per-frame tile-component planes after the inverse
-        DWT, in geometry order; per-lane ok)."""
+        DWT, in geometry order; per-lane ok). Every band of the F frames
+        in one ``coef_mosaic`` call, then every DWT level of every plane
+        in one ``dwt_lift_program`` call (the integer 9/7's final shift
+        on each plane's last level)."""
         mu, _sig, ok = decode_cleanup_scan_dims(
             msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs,
             self.qw, self.qh, self.ms_class)
-
-        if self.band_direct:
-            return self._band_direct(mu, magb, istep, scale97, fscale,
-                                     pf_idx, pf_val), ok
-        coef = coef_cuda.prefill(coef_cuda.dequant(
-            mu, magb, istep, scale97, fscale, self.transform, self.no_istep),
-            pf_idx, pf_val)
-        outs = []
-        for f in range(self.frames):
-            for plane_p, border, ndec in zip(self.plan.planes, self.borders,
-                                             self.ndecs):
-                plane = _compose_plane(coef, plane_p, f * self.n_pad)
-                if ndec > 0:
-                    b = [[border[0][0], border[0][1]],
-                         [border[1][0], border[1][1]]]
-                    plane = dwt_decode_flat(plane, b, ndec, self.transform)
-                outs.append(plane)
-        return outs, ok
-
-    def _band_direct(self, mu, magb, istep, scale97, fscale, pf_idx,
-                     pf_val):
-        """Stages 2-5 on the band-direct route: every band of the F
-        frames in one ``coef_mosaic`` call, then every DWT level of every
-        plane in one ``dwt_lift_program`` call (the integer 9/7's final
-        shift on each plane's last level)."""
         buf = coef_cuda.coef_mosaic(
             mu, magb, istep, scale97, fscale, pf_idx, pf_val, self.layout,
             self.transform, self.no_istep)
         scratch = dwt_cuda.dwt_lift_program(self.lift, buf)
-        return [self.layout.views(buf)[ll] if last is None
+        return [self.layout.view(buf, ll) if last is None
                 else self.lift.view(scratch, last)
-                for ll, last in zip(self._ll, self.lift.last)]
+                for ll, last in zip(self._ll, self.lift.last)], ok
+
+
+def flat_lift_plan(planes, borders, ndecs, transform: int, size: int):
+    """The ``LiftPlan`` of every tile-component plane's quadrant pyramid
+    in one flat buffer of `size` samples: plane i at ``planes[i] = (off,
+    ph, pw)``, row-major. Level l of a plane covers its top-left (lv, lh)
+    corner, split at (nEv, nE) into LL (the previous level's output, or
+    the plane's corner on its first level), HL, LH and HH, every band at
+    the plane's row stride pw."""
+    offs, shapes, specs = [], [], []
+
+    def band(o, r, c):
+        offs.append(o)
+        shapes.append((r, c))
+        return len(offs) - 1
+
+    for (off, _ph, pw), border, ndec in zip(planes, borders, ndecs):
+        linelen, mods = dwt_levels(_border(border), ndec)
+        ll, lvls = None, []
+        for (lh, lv), (mh, mv) in zip(linelen, mods):
+            nE, nEv = (lh + 1 - mh) // 2, (lv + 1 - mv) // 2
+            if ll is None:
+                ll = band(off, nEv, nE)
+            lvls.append((band(off + nE, nEv, lh - nE),
+                         band(off + nEv * pw, lv - nEv, nE),
+                         band(off + nEv * pw + nE, lv - nEv, lh - nE)))
+        specs.append((band(off, 0, 0) if ll is None else ll, lvls,
+                       [tuple(m) for m in mods]))
+    strides = [pw for (_o, _ph, pw), (_l, lvls, _m) in zip(planes, specs)
+               for _b in range(1 + 3 * len(lvls))]
+    return dwt_cuda.LiftPlan(offs, shapes, specs, transform,
+                             band_strides=strides, buffer_size=size)
 
 
 class BucketProgram(_Program):
@@ -433,18 +478,30 @@ class BucketProgram(_Program):
     `bucket_args` that bucket's lane arrays (models/fastpath.
     finish_buckets, or decoder._bucket_arrays) on the device, ``nreal``
     an int. Per bucket: the HT cleanup, plus SigProp / MagRef on refined
-    buckets (ops/ht_refine), and the dequant; then every lane scattered
-    into one flat buffer of ``total + 1`` elements after the sparse
-    prefill of the host-decoded lanes (pad lanes, samples outside a
-    codeblock and the prefill's pad go to the trailing trash slot); the
-    inverse DWT of every tile-component plane (``dwt_decode_flat``); the
-    v3 program's MCT / DC shift / clip / pack tail. A batch of F frames
-    is one program over the frame-replicated geometry."""
+    buckets (ops/ht_refine). Then one ``bucket_scatter`` call dequantizes
+    every lane into one flat buffer of ``total + 1`` samples after the
+    sparse prefill of the host-decoded lanes (pad lanes, samples outside a
+    codeblock and the prefill's pad go to the trailing trash slot); one
+    ``dwt_lift_program`` call runs the inverse DWT of every tile-component
+    plane from that buffer (its quadrant pyramid, a ``flat_lift_plan``
+    built once); the v3 program's MCT / DC shift / clip / pack tail. A
+    batch of F frames is one program over the frame-replicated
+    geometry."""
+
+    COEF_STAGE = "bucket_scatter"
 
     def __init__(self, shapes, geom_key: Tuple, wire_pack: bool = False):
         super().__init__(geom_key, frames=1, no_istep=False,
                          wire_pack=wire_pack)
         self.shapes = tuple(shapes)
+        self.dims = [(w, h) for _qw, _qh, w, h, _m, _r in self.shapes]
+        self.lift = flat_lift_plan(self.planes, self.borders, self.ndecs,
+                                   self.transform, self.total + 1)
+
+    def coef_launches(self) -> int:
+        """``bucket_scatter`` once each ``coef_cuda.MAX_BUCKETS`` buckets
+        (every bucket has lanes: its pads at least)."""
+        return coef_cuda.bucket_scatter_launches(len(self.shapes))
 
     def __call__(self, pf_idx, pf_val, bucket_args):
         return self.pack(*self.decode_planes(pf_idx, pf_val, bucket_args))
@@ -466,34 +523,15 @@ class BucketProgram(_Program):
 
     def decode_planes(self, pf_idx, pf_val, bucket_args):
         """(tile-component planes after the inverse DWT, in geometry order;
-        the lanes' ok, pad lanes masked true)."""
+        the lanes' ok, pad lanes true: they are inert)."""
         mus, oks = self.entropy(bucket_args)
-        dt = torch.float32 if self.transform == mk.DWT97 else torch.int32
-        flat = torch.zeros(self.total + 1, dtype=dt, device=pf_idx.device)
-        flat[pf_idx.long()] = pf_val.to(dt)
-        for (qw, qh, w, h, _msc, _r), mu, a in zip(self.shapes, mus,
-                                                   bucket_args):
-            coef = coef_cuda.dequant(mu, a["magb"], a["istep"],
-                                     a["scale97"], a["fscale"],
-                                     self.transform, self.no_istep)
-            y = torch.arange(2 * qh, device=mu.device)[None, :, None]
-            x = torch.arange(2 * qw, device=mu.device)[None, None, :]
-            base = a["dest"].long()[:, None, None]
-            idx = base + y * a["stride"].long()[:, None, None] + x
-            idx = torch.where((base < 0) | (y >= h) | (x >= w), self.total,
-                              idx)
-            flat[idx.reshape(-1)] = coef.reshape(-1).to(dt)
-        outs = []
-        for (off, ph, pw), border, ndec in zip(self.planes, self.borders,
-                                               self.ndecs):
-            plane = flat[off:off + ph * pw].view(ph, pw)
-            if ndec > 0:
-                b = [[border[0][0], border[0][1]],
-                     [border[1][0], border[1][1]]]
-                plane = dwt_decode_flat(plane, b, ndec, self.transform)
-            outs.append(plane)
-        ok = torch.cat([torch.ones(1, dtype=torch.bool, device=flat.device)]
-                       + [ok | (torch.arange(len(ok), device=ok.device)
-                                >= a["nreal"])
-                          for ok, a in zip(oks, bucket_args)])
+        flat = coef_cuda.bucket_scatter(
+            mus, self.dims, bucket_args, pf_idx, pf_val, self.total,
+            self.transform, self.no_istep)
+        scratch = dwt_cuda.dwt_lift_program(self.lift, flat)
+        outs = [flat[off:off + ph * pw].view(ph, pw) if last is None
+                else self.lift.view(scratch, last)
+                for (off, ph, pw), last in zip(self.planes, self.lift.last)]
+        ok = torch.cat(oks) if oks else torch.ones(
+            1, dtype=torch.bool, device=flat.device)
         return outs, ok

@@ -10,11 +10,13 @@ the three transforms (reversible 5/3, integer 9/7 with ``bitexact=True``,
 float 9/7 with ``bitexact=False``):
 
 - ``models/assembly.V3Program``, the v3 fused fast lane: one cleanup
-  launch over every codeblock, band mosaics, band-direct or flat DWT;
-- ``models/assembly.BucketProgram``, the v2 bucketed path: codeblocks
+  launch over every codeblock, band mosaics, the inverse DWT of every
+  level;
+- ``models/assembly.BucketProgram`` (``bucket_program``, built once per
+  bucket layout and geometry), the v2 bucketed path: codeblocks
   bucketed by shape and stream length, the cleanup per bucket plus
   SigProp / MagRef on refined buckets, a scatter into a flat buffer, the
-  flat DWT.
+  inverse DWT of its quadrant pyramids.
 
 Routing follows the reference ``Decoder``:
 
@@ -57,6 +59,7 @@ reason and decodes on one device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -342,6 +345,15 @@ def _pow2(n: int, lo: int) -> int:
     while v < n:
         v *= 2
     return v
+
+
+@functools.lru_cache(maxsize=64)
+def bucket_program(shapes: Tuple, geom_key: Tuple,
+                   wire_pack: bool = False) -> BucketProgram:
+    """The BucketProgram of one bucket layout and geometry, built once
+    (its DWT job table with it), as the JAX package caches
+    ``_compiled_assembly`` (decoder.py:460)."""
+    return BucketProgram(shapes, geom_key, wire_pack=wire_pack)
 
 
 def _bucket_arrays(b: _Bucket):
@@ -865,8 +877,8 @@ class Decoder:
         entropy + assembly (decoder.py:972-981)."""
         up = lambda v: to_torch(v, self.device) \
             if isinstance(v, np.ndarray) else v
-        prog = BucketProgram(shapes, geom.key(),
-                             wire_pack=self._wp(geom.cbps))
+        prog = bucket_program(tuple(map(tuple, shapes)), geom.key(),
+                              self._wp(geom.cbps))
         return prog(up(pf_idx), up(pf_val),
                     [{k: up(v) for k, v in a.items()} for a in bucket_args])
 

@@ -14,11 +14,20 @@ CPU tensors take the plain version ``coef_mosaic_ref``: ``dequant``, then
 slice / reshape / permute / cat torch ops the program ran before), the
 bands concatenated. CUDA tensors launch ``csrc/coef_mosaic.cu`` (one
 mosaic launch, then one prefill launch) and nothing else.
-``dequant``, ``prefill`` and ``mosaic_band`` also serve the programs'
-other routes: the v2 ``BucketProgram`` and the flat-DWT fallback.
+
+``bucket_scatter`` does the same for the v2 ``BucketProgram``
+(``ffmpeg_ht_tpu.models.decoder._compiled_assembly``, decoder.py:
+481-519): the dequant of every bucket's mu words and their scatter into
+one flat coefficient buffer (each tile-component plane's quadrant
+pyramid) after the sparse prefill. CPU tensors take
+``bucket_scatter_ref`` (``dequant`` and index puts, the program's torch
+ops before); CUDA tensors launch ``csrc/bucket_scatter.cu`` (a memset,
+the prefill launch, one bucket launch each ``MAX_BUCKETS`` buckets).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -29,6 +38,7 @@ from ffmpeg_ht_tpu_torch.utils.device import check_tensor
 
 # coef_mosaic_launch modes
 _MODE = {DWT53: 0, DWT97_INT: 1, DWT97: 2}
+MAX_BUCKETS = 48              # buckets a bucket_scatter launch (kMaxBuckets)
 
 
 def dequant(mu, magb, istep, scale97, fscale, transform: int,
@@ -140,6 +150,11 @@ class CoefLayout:
         return [buf[o:o + h * w].view(h, w)
                 for o, (h, w) in zip(self.offsets, self.shapes)]
 
+    def view(self, buf, b: int):
+        """Band b of a band buffer, a (bh, bw) view."""
+        (h, w), o = self.shapes[b], self.offsets[b]
+        return buf[o:o + h * w].view(h, w)
+
 
 def coef_mosaic_ref(mu, magb, istep, scale97, fscale, pf_idx, pf_val,
                     layout: CoefLayout, transform: int, no_istep: bool):
@@ -200,3 +215,94 @@ def coef_mosaic(mu, magb, istep, scale97, fscale, pf_idx, pf_val,
 
 coef_mosaic.launches = 0   # calls that launched the kernel (mosaic, then
                            # prefill)
+
+
+_LANE_VECTORS = (("dest", torch.int32), ("stride", torch.int32),
+                 ("magb", torch.int32), ("istep", torch.int32),
+                 ("scale97", torch.int32), ("fscale", torch.float32))
+
+
+def bucket_scatter_ref(mus, dims, lanes, pf_idx, pf_val, total: int,
+                       transform: int, no_istep: bool):
+    """Plain PyTorch version of ``bucket_scatter``: zeros, the prefill,
+    then each bucket's lanes dequantized and put at ``dest + y * stride +
+    x``, pad lanes and samples outside a codeblock into the trailing trash
+    slot, which is cleared last."""
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    flat = torch.zeros(total + 1, dtype=dt, device=pf_idx.device)
+    flat[pf_idx.long()] = pf_val.to(dt)
+    for mu, (w, h), a in zip(mus, dims, lanes):
+        coef = dequant(mu, a["magb"], a["istep"], a["scale97"], a["fscale"],
+                       transform, no_istep)
+        y = torch.arange(mu.shape[1], device=mu.device)[None, :, None]
+        x = torch.arange(mu.shape[2], device=mu.device)[None, None, :]
+        base = a["dest"].long()[:, None, None]
+        idx = base + y * a["stride"].long()[:, None, None] + x
+        idx = torch.where((base < 0) | (y >= h) | (x >= w), total, idx)
+        flat[idx.reshape(-1)] = coef.reshape(-1).to(dt)
+    flat[total] = 0
+    return flat
+
+
+def bucket_scatter(mus, dims, lanes, pf_idx, pf_val, total: int,
+                   transform: int, no_istep: bool):
+    """The flat coefficient buffer of a v2 program: ``total + 1`` samples
+    (int32; float32 for DWT97), the last one a trash slot that reads 0.
+
+    `mus` holds each bucket's (N, bh, bw) int32 mu words, `dims` its
+    codeblocks' (w, h) (at most (bw, bh)), `lanes` its lane vectors
+    (a mapping with "dest", "stride", "magb", "istep", "scale97": N
+    int32, "fscale": N float32; a pad lane has dest < 0); `pf_idx` (int32,
+    ``total`` for a pad) and `pf_val` (the buffer's dtype) the prefill.
+    Lane samples are written after the prefill, over it where they meet.
+    A CUDA tensor takes one call of the kernel's entry point (a memset,
+    the prefill, one launch each MAX_BUCKETS buckets, counted); a CPU
+    tensor the plain version."""
+    if transform not in _MODE:
+        raise ValueError(f"unknown transform {transform}")
+    dev = pf_idx.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    dtype = torch.float32 if transform == DWT97 else torch.int32
+    check_tensor(pf_idx, "pf_idx", torch.int32, dev, 1, pf_idx.shape[0])
+    check_tensor(pf_val, "pf_val", dtype, dev, 1, pf_idx.shape[0])
+    mus, dims, lanes = list(mus), list(dims), list(lanes)
+    if not len(mus) == len(dims) == len(lanes):
+        raise ValueError("one mu, one (w, h) and one lane map a bucket")
+    rows = []
+    for mu, (w, h), a in zip(mus, dims, lanes):
+        check_tensor(mu, "mu", torch.int32, dev, 3, mu.shape[0])
+        n, bh, bw = mu.shape
+        if not (0 <= w <= bw and 0 <= h <= bh):
+            raise ValueError(f"a {w}x{h} codeblock in a {bw}x{bh} raster")
+        for name, dt in _LANE_VECTORS:
+            check_tensor(a[name], name, dt, dev, 1, n)
+        rows.append([mu.data_ptr()] + [a[k].data_ptr()
+                                       for k, _d in _LANE_VECTORS]
+                    + [n, bh, bw, h, w])
+    if dev.type == "cpu":
+        return bucket_scatter_ref(mus, dims, lanes, pf_idx, pf_val, total,
+                                  transform, no_istep)
+    table = np.array(rows, np.int64).reshape(-1, 12)
+    out = torch.empty(total + 1, dtype=dtype, device=dev)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = build.load().lib.bucket_scatter_launch(
+            table.ctypes.data, len(table), pf_idx.data_ptr(),
+            pf_val.data_ptr(), pf_idx.shape[0], total, _MODE[transform],
+            int(no_istep), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.addressof(n))
+    build.check(err, "bucket_scatter_launch")
+    bucket_scatter.launches += n.value
+    return out
+
+
+def bucket_scatter_launches(nbuckets: int) -> int:
+    """The launches ``bucket_scatter`` counts for `nbuckets` buckets with
+    lanes: one each MAX_BUCKETS."""
+    return -(-nbuckets // MAX_BUCKETS)
+
+
+bucket_scatter.launches = 0   # bucket launches (one a MAX_BUCKETS
+                              # buckets; the memset and the prefill ride
+                              # on the call)

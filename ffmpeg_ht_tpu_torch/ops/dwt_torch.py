@@ -322,6 +322,28 @@ def dwt_level_ref(ll, hl, lhb, hh, mh: int, mv: int, dwt_type: int,
     return _preshift(p) if preshift else p
 
 
+def dwt_level_small_ref(ll, hl, lhb, hh, mh: int, mv: int, dwt_type: int,
+                        preshift: bool = False):
+    """One level whose width or height is under 8, from its four bands
+    (shapes as in ``dwt_level_ref``; a band may be empty): what
+    ``dwt_decode_flat`` computes for such a level, the rows ``[LL | HL]``
+    over ``[LH | HH]`` through the interleaved line buffer (``_interleave``
+    and ``_SR``) on rows, then on columns, a line of one sample included;
+    with `preshift` the integer 9/7's final rounding shift after it. The
+    plain version of the kernel ``csrc/dwt_small.cu``
+    (ops/dwt_cuda.dwt_small)."""
+    sr = _SR[dwt_type]
+    lh, lv = lhb.shape[1] + hl.shape[1], hl.shape[0] + lhb.shape[0]
+    rows = torch.cat([torch.cat([ll, hl], 1), torch.cat([lhb, hh], 1)], 0)
+    p = _interleave(rows, lh, mh)
+    sr(p, mh, mh + lh)
+    cols = p[:, _PAD + mh:_PAD + mh + lh].t()
+    p = _interleave(cols, lv, mv)
+    sr(p, mv, mv + lv)
+    p = p[:, _PAD + mv:_PAD + mv + lv].t().contiguous()
+    return _preshift(p) if preshift else p
+
+
 def dwt_decode_bands(ll, levels, border, ndeclevels: int, dwt_type: int):
     """Multi-level inverse DWT from subband arrays (polyphase path only).
 

@@ -24,12 +24,20 @@ them all in one launch. CPU tensors take the plain versions
 (``rct_writeframe_ref``, ``ict_writeframe_ref``) followed by the
 narrowing copy; CUDA tensors launch ``csrc/rct_writeframe.cu`` or
 ``csrc/ict_writeframe.cu``.
+
+``plane_writeframe`` is the same tail for the planes that no MCT takes
+(``finish`` and the packing of the JAX programs, assembly.py:389 and
+decoder.py:546): DC shift, clip and narrow pack of any number of planes,
+each to its own offset in the packed output, in one launch on the card
+(``csrc/plane_writeframe.cu``); the plain version is
+``plane_writeframe_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
@@ -45,6 +53,8 @@ _MAX_CBPS = {torch.int32: 30, torch.int16: 16, torch.uint8: 8}
 _ICT_MODE = {DWT97_INT: (0, torch.int32), DWT97: (1, torch.float32)}
 _F0, _F1, _F2, _F3 = (float(v) for v in F_ICT)   # exact float32 values
 _ICT_MAX_FRAMES = 32          # frames per launch (kMaxFrames in the .cu)
+MAX_PLANES = 160              # planes per plane_writeframe launch
+                              # (kMaxPlanes in the .cu)
 
 
 def dc_shift_clip(c, cbps: int):
@@ -219,3 +229,75 @@ def ict_writeframe(frames, cbps: int, transform: int, out=None,
 
 
 ict_writeframe.launches = 0   # CUDA kernel launches
+
+
+def _check_writes(planes, offsets, out, cbps: int):
+    """Raise unless `planes` are contiguous int32 (or float32) tensors of
+    one dtype on one CPU or CUDA device and each fits `out` at its
+    offset; returns their dtype and device."""
+    if len(planes) != len(offsets):
+        raise ValueError("one offset a plane")
+    dev = out.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    _check_out(out, out.numel(), dev, cbps)
+    dtype = planes[0].dtype if planes else torch.int32
+    if dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"planes have dtype {dtype}")
+    for p, o in zip(planes, offsets):
+        if p.device != dev:
+            raise ValueError(f"a plane on {p.device}, expected {dev}")
+        if p.dtype != dtype:
+            raise TypeError(f"a plane has dtype {p.dtype}, expected {dtype}")
+        if not p.is_contiguous():
+            raise ValueError("a plane is not contiguous")
+        if o < 0 or o + p.numel() > out.numel():
+            raise ValueError(f"a plane of {p.numel()} samples at {o} "
+                             f"overruns out ({out.numel()})")
+    return dtype, dev
+
+
+def plane_writeframe_ref(planes, cbps: int, out, offsets):
+    """Plain PyTorch version of ``plane_writeframe``: ``dc_shift_clip``
+    and ``narrow`` a plane at a time."""
+    for p, o in zip(planes, offsets):
+        out[o:o + p.numel()] = narrow(dc_shift_clip(p, cbps),
+                                      out.dtype).reshape(-1)
+    return out
+
+
+def plane_writeframe(planes, cbps: int, out, offsets):
+    """DC shift + clip (float samples rounded half to even first) of each
+    of `planes` (contiguous int32 or float32 tensors of one dtype), each
+    narrowed into `out` (a contiguous 1-D int32, int16 holding uint16
+    bits, or uint8 tensor) from its offset in `offsets`; returns `out`.
+    A CUDA tensor takes one launch for every MAX_PLANES planes; a CPU
+    tensor the plain version."""
+    planes, offsets = list(planes), [int(o) for o in offsets]
+    dtype, dev = _check_writes(planes, offsets, out, cbps)
+    if dev.type == "cpu":
+        return plane_writeframe_ref(planes, cbps, out, offsets)
+    live = [(p, o) for p, o in zip(planes, offsets) if p.numel()]
+    if not live:
+        return out
+    base = live[0][0].data_ptr()
+    table = np.array([((p.data_ptr() - base) // 4, p.numel(), o)
+                      for p, o in live], np.int64)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = build.load().lib.plane_writeframe_launch(
+            table.ctypes.data, len(table), base, int(dtype == torch.float32),
+            cbps, out.data_ptr(), _OUT_KIND[out.dtype],
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.addressof(n))
+    build.check(err, "plane_writeframe_launch")
+    plane_writeframe.launches += n.value
+    return out
+
+
+def plane_writeframe_launches(nplanes: int) -> int:
+    """The launches ``plane_writeframe`` makes for `nplanes` planes with
+    samples: one each MAX_PLANES."""
+    return -(-nplanes // MAX_PLANES)
+
+
+plane_writeframe.launches = 0   # CUDA kernel launches

@@ -38,7 +38,8 @@ from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.models.encoder import (encode_frame_htj2k,
                                                 encode_frame_t800)
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
-from ffmpeg_ht_tpu_torch.ops import ht_refine, ht_scan, mct_cuda, wirepack
+from ffmpeg_ht_tpu_torch.ops import (coef_cuda, dwt_cuda, ht_refine, ht_scan,
+                                     mct_cuda, wirepack)
 from test_fate import _corpus as fate_corpus
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,8 +47,11 @@ REF_DIR = os.path.join(REPO, "tests", "ref")
 
 # `launches` counts, in this order, the HT cleanup pair (one VLC and one
 # MagSgn launch each), the refinement pair (SigProp then MagRef), RCT,
-# ICT and the wire pack
-KERNELS = ("cleanup", "refine", "rct", "ict", "wire_pack")
+# ICT, the wire pack, coef_mosaic, dwt_lift (a launch a DWT level of at
+# least 8x8), dwt_small (a launch for the levels under 8x8),
+# bucket_scatter and plane_writeframe
+KERNELS = ("cleanup", "refine", "rct", "ict", "wire_pack", "coef", "lift",
+           "small", "scatter", "write")
 ROUTES = {"v3": (1, 0, 0), "v2": (0, 1, 0), "host": (0, 0, 1)}
 POC = [(0, 0, 2, 2, 1, "lrcp"), (2, 0, 2, 33, 1, "rlcp")]
 SMALL = dict(nreslevels=3, log2_cblk_width=5, log2_cblk_height=5)
@@ -69,10 +73,20 @@ def _lowamp(seed, h, w, amp):
 
 def _corpus():
     """[Case]: the FATE streams, then the tail."""
-    fate_route = {"ht-3pass": ("v2", (2, 2, 0, 0, 0))}
-    cases = [Case(name, kind, img, opts, {},
-                  *(fate_route.get(name, ("v3", (1, 0, 0, 0, 0)))
-                    if kind == "ht" else ("host", (0, 0, 0, 0, 0))),
+    # the FATE streams' routes and launches by KERNELS
+    fate = {
+        "ht-gray-64": ("v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1)),
+        "ht-gray-odd": ("v3", (1, 0, 0, 0, 0, 1, 3, 1, 0, 1)),
+        "ht-rgb": ("v3", (1, 0, 0, 0, 0, 1, 3, 1, 0, 1)),
+        "ht-16bit": ("v3", (1, 0, 0, 0, 0, 1, 3, 1, 0, 1)),
+        "ht-smooth": ("v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1)),
+        "ht-3pass": ("v2", (2, 2, 0, 0, 0, 0, 4, 1, 1, 1)),
+        "ht-tiled": ("v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1)),
+        "j2k-53": ("host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        "j2k-97int": ("host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        "j2k-layers": ("host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+    }
+    cases = [Case(name, kind, img, opts, {}, *fate[name],
                   opts.get("pred", 1) == 1, True)
              for name, kind, img, opts in fate_corpus()]
     rgb3 = [_noise(10 + i, (80, 112)) for i in range(3)]
@@ -80,83 +94,93 @@ def _corpus():
                                                 dtype=np.int16)
     for name, img, enc, dec, route, launches, lossless in (
             ("ppt", _noise(1, (96, 128)), dict(ppt=True), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppt-multitile-layers-eph", _noise(2, (80, 112, 3)),
              dict(tile_width=64, tile_height=64, ppt=True, eph=True,
                   refinement=True, ht_layers=2), {}, "v2",
-             (2, 2, 0, 0, 0), True),
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             ("ppt-sop", _noise(3, (96, 128)),
              dict(ppt=True, sop=True, eph=True), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppt-tile-parts", _noise(4, (96, 128)),
-             dict(ppt=True, tp_interval=3), {}, "v3", (1, 0, 0, 0, 0), True),
+             dict(ppt=True, tp_interval=3), {}, "v3",
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppm", _noise(5, (96, 128)), dict(ppm=True), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("ppm-multitile", _noise(6, (80, 112, 3)),
              dict(tile_width=48, tile_height=48, ppm=True), {}, "v2",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 0, 3, 1, 1, 1), True),
             ("ppt-poc-layers", _noise(7, (96, 128)),
              dict(ppt=True, refinement=True, ht_layers=2, nreslevels=4,
-                  poc=POC), {}, "v2", (2, 2, 0, 0, 0), True),
+                  poc=POC), {}, "v2", (2, 2, 0, 0, 0, 0, 3, 0, 1, 1), True),
             ("precincts", _noise(8, (96, 128)), dict(log2_prec_width=6), {},
-             "v3", (1, 0, 0, 0, 0), True),
+             "v3", (1, 0, 0, 0, 0, 1, 4, 1, 0, 1), True),
             ("rpcl-layers-precincts", _noise(9, (96, 128)),
              dict(refinement=True, ht_layers=2, log2_prec_width=6,
-                  prog="rpcl"), {}, "v2", (2, 2, 0, 0, 0), True),
+                  prog="rpcl"), {}, "v2",
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             ("rgb-layers-multitile", rgb3,
              dict(chroma_shift=(0, 0), refinement=True, ht_layers=2,
                   tile_width=64, tile_height=64, log2_prec_width=5), {},
-             "v2", (2, 2, 0, 0, 0), True),
+             "v2", (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             ("plhd-3layer", _noise(13, (96, 128)),
-             dict(refinement=True, ht_layers=3), {}, "v2", (2, 2, 0, 0, 0),
+             dict(refinement=True, ht_layers=3), {}, "v2",
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1),
              True),
             ("plhd-single-16", _noise(14, (96, 128)),
              dict(refinement=True, ht_plhd_single=True), {}, "v2",
-             (2, 2, 0, 0, 0), True),
+             (2, 2, 0, 0, 0, 0, 4, 1, 1, 1), True),
             # 8x8 codeblocks are under the host area: every lane decodes
-            # on the host inside the fast lane, and nothing launches
+            # on the host inside the fast lane, and no entropy kernel
+            # launches; the flat buffer is the prefill alone (no bucket
+            # launch), then the DWT and the write-out
             ("plhd-single-8", _noise(14, (96, 128)),
              dict(refinement=True, ht_plhd_single=True, log2_cblk_width=3,
-                  log2_cblk_height=3), {}, "v2", (0, 0, 0, 0, 0), True),
+                  log2_cblk_height=3), {}, "v2",
+             (0, 0, 0, 0, 0, 0, 4, 1, 0, 1), True),
             ("lowres-r1", _noise(15, (96, 128)), dict(nreslevels=5),
-             dict(reduction_factor=1), "v3", (1, 0, 0, 0, 0), False),
+             dict(reduction_factor=1), "v3",
+             (1, 0, 0, 0, 0, 1, 3, 0, 0, 1), False),
             ("lowres-r2", _noise(15, (96, 128)), dict(nreslevels=5),
-             dict(reduction_factor=2), "v3", (1, 0, 0, 0, 0), False),
+             dict(reduction_factor=2), "v3",
+             (1, 0, 0, 0, 0, 1, 2, 0, 0, 1), False),
             ("lowres-rgb-multitile-prec", _noise(16, (80, 112, 3)),
              dict(tile_width=64, tile_height=64, nreslevels=4,
                   log2_prec_width=5, mct=True), dict(reduction_factor=1),
-             "v3", (1, 0, 4, 0, 0), False),
+             "v3", (1, 0, 4, 0, 0, 1, 2, 1, 0, 0), False),
             ("lowres-layers-poc", _noise(17, (96, 128)),
              dict(nreslevels=4, refinement=True, ht_layers=2, poc=POC),
-             dict(reduction_factor=1), "v2", (2, 2, 0, 0, 0), False),
+             dict(reduction_factor=1), "v2",
+             (2, 2, 0, 0, 0, 0, 2, 0, 1, 1), False),
             ("signed-10bit", signed,
              dict(depth=10, sgnd=True, tile_width=128, tile_height=128,
                   log2_cblk_width=6, log2_cblk_height=6), {}, "v3",
-             (1, 0, 0, 0, 0), True),
+             (1, 0, 0, 0, 0, 1, 5, 1, 0, 1), True),
             ("roi", _lowamp(19, 128, 128, 7),
              dict(roi_shift=9, tile_width=128, tile_height=128,
                   log2_cblk_width=6, log2_cblk_height=6), {}, "host",
-             (0, 0, 0, 0, 0), True),
+             (0, 0, 0, 0, 0, 0, 0, 0, 0, 0), True),
             ("ht-mixed", _noise(20, (64, 80)), dict(ht_mixed=True), {},
-             "host", (0, 0, 0, 0, 0), True),
+             "host", (0, 0, 0, 0, 0, 0, 0, 0, 0, 0), True),
             ("max-layers-1", _noise(21, (96, 128)),
              dict(refinement=True, ht_layers=2), dict(max_layers=1), "v2",
-             (2, 0, 0, 0, 0), False),
+             (2, 0, 0, 0, 0, 0, 4, 1, 1, 1), False),
             ("cblk-128x32", _noise(22, (96, 128)),
              dict(log2_cblk_width=7, log2_cblk_height=5), {}, "host",
-             (0, 0, 0, 0, 0), True),
+             (0, 0, 0, 0, 0, 0, 0, 0, 0, 0), True),
             ("rct-rgb10", _noise(23, (96, 128, 3), 1024, np.uint16),
-             dict(depth=10, mct=True, **SMALL), {}, "v3", (1, 0, 1, 0, 0),
+             dict(depth=10, mct=True, **SMALL), {}, "v3",
+             (1, 0, 1, 0, 0, 1, 2, 0, 0, 0),
              True),
             ("ict-int", _noise(24, (96, 128, 3)),
              dict(pred=0, mct=True, **SMALL), dict(bitexact=True), "v3",
-             (1, 0, 0, 1, 0), False),
+             (1, 0, 0, 1, 0, 1, 2, 0, 0, 0), False),
             ("ict-float", _noise(24, (96, 128, 3)),
              dict(pred=0, mct=True, **SMALL), dict(bitexact=False), "v3",
-             (1, 0, 0, 1, 0), False),
+             (1, 0, 0, 1, 0, 1, 2, 0, 0, 0), False),
             ("wire-pack-12", _noise(25, (96, 128), 4096, np.uint16),
              dict(depth=12, **SMALL), dict(wire_pack=True), "v3",
-             (1, 0, 0, 0, 1), True)):
+             (1, 0, 0, 0, 1, 1, 2, 0, 0, 1), True)):
         cases.append(Case(name, "ht", img, enc, dec, route, launches,
                           lossless, False))
     return cases
@@ -204,21 +228,44 @@ def max_abs_diff(a: bytes, b: bytes, wide: bool) -> int:
 
 @pytest.fixture
 def plain_calls(monkeypatch):
-    """Counts of the kernels' plain versions called with at least one lane,
-    by group of KERNELS: on the CPU the wrappers call them where a CUDA
-    tensor would launch the kernel."""
+    """Counts of the kernels' plain versions called (the cleanup and the
+    refinement with at least one lane), by group of KERNELS: on the CPU
+    the wrappers call them where a CUDA tensor would launch the kernel;
+    a ``dwt_lift_program_ref`` call counts its plan's launches of each
+    DWT kernel, a ``bucket_scatter_ref`` or ``plane_writeframe_ref`` call
+    its kernel's launches."""
     calls = dict.fromkeys(KERNELS, 0)
     for mod, name, group, lanes in (
             (ht_scan, "vlc_pass_ref", "cleanup", True),
             (ht_refine, "refine_ref", "refine", True),
             (mct_cuda, "rct_writeframe_ref", "rct", False),
             (mct_cuda, "ict_writeframe_ref", "ict", False),
-            (wirepack, "pack_words_ref", "wire_pack", False)):
+            (wirepack, "pack_words_ref", "wire_pack", False),
+            (coef_cuda, "coef_mosaic_ref", "coef", False)):
         def counted(*a, _fn=getattr(mod, name), _group=group, _lanes=lanes):
             if not _lanes or a[0].shape[0]:
                 calls[_group] += 1
             return _fn(*a)
         monkeypatch.setattr(mod, name, counted)
+
+    def lifted(plan, bands, _fn=dwt_cuda.dwt_lift_program_ref):
+        calls["lift"] += plan.lift_launches
+        calls["small"] += plan.small_launches
+        return _fn(plan, bands)
+
+    def scattered(mus, *a, _fn=coef_cuda.bucket_scatter_ref):
+        calls["scatter"] += coef_cuda.bucket_scatter_launches(
+            sum(1 for mu in mus if mu.shape[0]))
+        return _fn(mus, *a)
+
+    def written(planes, cbps, out, offsets,
+                _fn=mct_cuda.plane_writeframe_ref):
+        calls["write"] += mct_cuda.plane_writeframe_launches(
+            sum(1 for p in planes if p.numel()))
+        return _fn(planes, cbps, out, offsets)
+    monkeypatch.setattr(dwt_cuda, "dwt_lift_program_ref", lifted)
+    monkeypatch.setattr(coef_cuda, "bucket_scatter_ref", scattered)
+    monkeypatch.setattr(mct_cuda, "plane_writeframe_ref", written)
     return calls
 
 

@@ -37,8 +37,19 @@ and c2's top levels, more jobs than one launch takes, tall levels, lines
 of 60000 samples, and an edge set (every size 8-67 and the tile seams
 +-1 on both axes, at every origin-parity pair); ``dwt_lift_program``
 (every level of a V3Program in one call) matches it level by level and
-launches what ``kernel_launches()`` says; a V3Program on the card gives
-the CPU decoder's bytes with every plain stage made to raise. With two cards or more:
+launches what ``kernel_launches()`` says; ``dwt_lift`` takes strided jobs
+(bands that are corners of larger planes); the ``dwt_small`` kernel
+(one ``dwt_lift_program`` call over planes of one small level) matches
+``dwt_level_small_ref`` bit for bit on every level with a side of 1-7
+against 1-67 and on 70000-sample lines, at every parity; a flat
+buffer's quadrant pyramids through one ``dwt_lift_program`` call (small
+and strided jobs) match ``dwt_lift_program_ref``; ``bucket_scatter``
+matches ``bucket_scatter_ref`` (pad lanes, cropped codeblocks, prefill
+entries under lane samples) and ``plane_writeframe`` matches
+``plane_writeframe_ref`` (float ties, both output widths, more planes
+than a launch takes); a band-direct V3Program, one with levels under
+8x8 and a BucketProgram on the card give the CPU decoder's bytes with
+every plain stage made to raise. With two cards or more:
 every kernel on the second card's tensors
 while the first is current (the wrappers' launch guard), and
 ``decode_batch(devices=<every card>)`` against one card.
@@ -822,21 +833,253 @@ def test_dwt_lift_kernel_rejects_bad_args(cuda):
                             False)], DWT53)
 
 
+@pytest.mark.parametrize("mh,mv", [(0, 0), (1, 0), (0, 1), (1, 1)])
 @pytest.mark.parametrize("tname", list(TRANSFORMS))
-def test_v3_program_on_the_card_runs_no_plain_stage(cuda, tname,
-                                                   monkeypatch):
-    """A V3Program on CUDA tensors launches coef_mosaic once and dwt_lift
-    once a level, and reaches neither the dequant, the prefill, the
-    mosaics nor the torch lifting (each made to raise), giving the CPU
-    decoder's bytes."""
-    from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+def test_dwt_small_kernel_edge_set(cuda, tname, mh, mv):
+    """Every level under 8 in a dimension: each side of 1-7 against the
+    other of 1-67 both ways, and lines of 70000 samples, at origin
+    parities (mh, mv), a plane of one level each (with the final shift on
+    the integer 9/7), bands back to back in one buffer: one
+    dwt_lift_program call is one dwt_small launch, by bits against
+    dwt_lift_program_ref (dwt_level_small_ref job by job)."""
+    transform = TRANSFORMS[tname]
+    sizes = [(a, b) for a in range(1, 8) for b in range(1, 68)]
+    sizes += [(b, a) for a, b in sizes if b >= 8]
+    sizes += [(5, 70000), (70000, 3), (1, 70000), (70000, 1)]
+    shapes, planes = [], []
+    for w, h in sizes:
+        nE, nEv = (w + 1 - mh) // 2, (h + 1 - mv) // 2
+        b = len(shapes)
+        shapes += [(nEv, nE), (nEv, w - nE), (h - nEv, nE),
+                   (h - nEv, w - nE)]
+        planes.append((b, [(b + 1, b + 2, b + 3)], [(mh, mv)]))
+    offsets = np.cumsum([0] + [r * c for r, c in shapes])[:-1].tolist()
+    plan = dwt_cuda.LiftPlan(offsets, shapes, planes, transform)
+    assert len(plan.small_table) == len(sizes) and not len(plan.table)
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    rng = np.random.default_rng(mh * 2 + mv + 20 * len(tname))
+    buf = torch.from_numpy(rng.integers(-4000, 4000, plan.band_total)) \
+        .to(dt).to(cuda)
+    before = (dwt_cuda.dwt_lift.launches, dwt_cuda.dwt_small.launches)
+    got = dwt_cuda.dwt_lift_program(plan, buf)
+    torch.cuda.synchronize()
+    assert (dwt_cuda.dwt_lift.launches - before[0],
+            dwt_cuda.dwt_small.launches - before[1]) == (0, 1)
+    assert _same_bits(got, dwt_cuda.dwt_lift_program_ref(plan, buf.cpu())
+                      .to(cuda))
+
+
+FLAT_PLANES = {
+    # (h, w) planes of one flat buffer with their borders and levels: the
+    # 8K frame's bottom tiles (lowest levels 32x7 and 16x7), odd origins
+    # with two small levels, a plane of small levels only, an empty level
+    # (a side of 0), and one without levels
+    "c4": [((224, 1024), ((0, 1024), (4096, 4320)), 6),
+           ((224, 512), ((7168, 7680), (4096, 4320)), 6)],
+    "odd": [((37, 45), ((3, 48), (1, 38)), 3),
+            ((6, 70), ((1, 71), (0, 6)), 2),
+            ((1, 5), ((5, 10), (9, 10)), 3),
+            ((13, 1), ((7, 8), (2, 15)), 2),
+            ((9, 9), ((0, 9), (0, 9)), 0)],
+}
+
+
+def _flat_program(geom, transform):
+    """(the flat LiftPlan of FLAT_PLANES[geom], planes one after another in
+    one buffer with a trailing slot)."""
+    from ffmpeg_ht_tpu_torch.models.assembly import flat_lift_plan
+    planes, off = [], 0
+    for (h, w), _b, _n in FLAT_PLANES[geom]:
+        planes.append((off, h, w))
+        off += h * w
+    return flat_lift_plan(planes, [b for _s, b, _n in FLAT_PLANES[geom]],
+                          [n for _s, _b, n in FLAT_PLANES[geom]], transform,
+                          off + 1)
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+@pytest.mark.parametrize("geom", list(FLAT_PLANES))
+def test_flat_dwt_program_matches_ref(cuda, geom, tname):
+    """A flat buffer's quadrant pyramids through one dwt_lift_program
+    call: dwt_small for the levels under 8x8, then dwt_lift on strided
+    jobs (the bands are corners of each plane, rows at its width), equal
+    by bits to dwt_lift_program_ref, with the plan's launches."""
+    transform = TRANSFORMS[tname]
+    plan = _flat_program(geom, transform)
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    rng = np.random.default_rng(len(geom) + 7 * len(tname))
+    flat = torch.from_numpy(rng.integers(-4000, 4000, plan.band_total)) \
+        .to(dt).to(cuda)
+    before = (dwt_cuda.dwt_lift.launches, dwt_cuda.dwt_small.launches)
+    got = dwt_cuda.dwt_lift_program(plan, flat)
+    torch.cuda.synchronize()
+    assert (dwt_cuda.dwt_lift.launches - before[0],
+            dwt_cuda.dwt_small.launches - before[1]) \
+        == (plan.lift_launches, plan.small_launches)
+    assert plan.small_launches == 1
+    assert _same_bits(got, dwt_cuda.dwt_lift_program_ref(plan, flat.cpu())
+                      .to(cuda))
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_dwt_lift_kernel_strided_jobs(cuda, tname):
+    """dwt_lift on jobs whose bands are corners of larger planes (rows at
+    the plane's stride, as a flat buffer holds them), at every parity:
+    by bits against dwt_level_ref on the same views."""
+    transform = TRANSFORMS[tname]
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    rng = np.random.default_rng(40 + len(tname))
+    jobs = []
+    for (w, h), (mh, mv), pw in (((8, 8), (0, 0), 9), ((300, 41), (1, 0), 301),
+                                 ((33, 260), (0, 1), 100),
+                                 ((255, 17), (1, 1), 4000)):
+        plane = torch.from_numpy(rng.integers(-4000, 4000, (h + 3, pw))) \
+            .to(dt).to(cuda)
+        nE, nEv = (w + 1 - mh) // 2, (h + 1 - mv) // 2
+        jobs.append((plane[:nEv, :nE], plane[:nEv, nE:w], plane[nEv:h, :nE],
+                     plane[nEv:h, nE:w], mh, mv, transform == DWT97_INT))
+    _check_lift(jobs, transform)
+
+
+def _scatter_case(rng, transform, cuda):
+    """Random buckets (pad lanes, a bucket of no lanes, codeblocks smaller
+    than their rasters) at disjoint destinations of a flat buffer, and a
+    prefill of which some entries meet lane samples: (args of
+    bucket_scatter, the prefill entries under a lane)."""
+    total = 60000
+    used = np.zeros(total, bool)
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    mus, dims, lanes = [], [], []
+    for bw, bh, w, h, n in ((8, 8, 8, 8, 40), (8, 4, 5, 3, 33),
+                            (64, 64, 64, 61, 3), (4, 4, 4, 4, 0),
+                            (32, 16, 31, 16, 9)):
+        dest, stride = np.full(n, -1, np.int32), np.zeros(n, np.int32)
+        for i in range(n):
+            if i % 5 == 4:
+                continue                          # a pad lane
+            for _try in range(100):
+                st = int(rng.integers(w, w + 40))
+                d = int(rng.integers(0, total - (h - 1) * st - w))
+                idx = (d + np.arange(h)[:, None] * st
+                       + np.arange(w)[None]).ravel()
+                if not used[idx].any():
+                    used[idx] = True
+                    dest[i], stride[i] = d, st
+                    break
+        mus.append(t(rng.integers(-2 ** 31, 2 ** 31, (n, bh, bw),
+                                  dtype=np.int64).astype(np.int32)))
+        dims.append((w, h))
+        lanes.append(dict(
+            dest=t(dest), stride=t(stride),
+            magb=t(rng.integers(0, 40, n).astype(np.int32)),
+            istep=t(np.where(rng.random(n) < 0.3, 32768,
+                             rng.integers(0, 70000, n)).astype(np.int32)),
+            scale97=t(rng.integers(-70000, 70000, n).astype(np.int32)),
+            fscale=t((rng.random(n) * 1e-6).astype(np.float32))))
+    idx = np.unique(np.concatenate([rng.choice(total, 2000, replace=False),
+                                    [total]]))
+    pf_idx = t(idx.astype(np.int32))
+    pf_val = t(rng.integers(-9999, 9999, len(idx))).to(dt)
+    return (mus, dims, lanes, pf_idx, pf_val, total), \
+        int(used[idx[idx < total]].sum())
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_bucket_scatter_kernel_matches_ref(cuda, tname):
+    """bucket_scatter against bucket_scatter_ref by bits in all three
+    transforms, with and without the step: random mu words, shifts past
+    31, wrapping steps, pad lanes, cropped codeblocks, and prefill
+    entries under lane samples (the lanes win in both)."""
+    transform = TRANSFORMS[tname]
+    args, met = _scatter_case(np.random.default_rng(50 + len(tname)),
+                              transform, cuda)
+    assert met > 0
+    for no_istep in (False, True):
+        before = coef_cuda.bucket_scatter.launches
+        got = coef_cuda.bucket_scatter(*args, transform, no_istep)
+        torch.cuda.synchronize()
+        assert coef_cuda.bucket_scatter.launches == before + 1
+        assert _same_bits(got, coef_cuda.bucket_scatter_ref(
+            *args, transform, no_istep))
+
+
+@pytest.mark.parametrize("out_dtype,cbps", [(torch.uint8, 8),
+                                            (torch.uint8, 5),
+                                            (torch.int16, 10),
+                                            (torch.int16, 16),
+                                            (torch.int32, 12)])
+@pytest.mark.parametrize("src", ["int", "float"])
+def test_plane_writeframe_kernel_matches_ref(cuda, src, out_dtype, cbps):
+    """plane_writeframe against plane_writeframe_ref: planes from two
+    buffers at any offset, ragged sizes, an empty plane, exact .5 ties of
+    float samples, values far past the clip, and more planes than one
+    launch takes."""
+    rng = np.random.default_rng(60 + cbps)
+    dt = torch.float32 if src == "float" else torch.int32
+    bufs = [torch.from_numpy(rng.normal(0, 40000, n)).to(dt).to(cuda)
+            for n in (300000, 200000)]
+    if src == "float":
+        bufs[0][:64] = torch.arange(64, device=cuda) - 32.5
+    planes, offs, pos = [], [], 0
+    for k in range(mct_cuda.MAX_PLANES + 7):
+        b = bufs[k % 2]
+        n = int(rng.integers(0, 3000)) if k % 11 else 4097
+        o = int(rng.integers(0, b.numel() - n))
+        planes.append(b[o:o + n])
+        offs.append(pos)
+        pos += n + int(rng.integers(0, 3))
+    want = mct_cuda.plane_writeframe_ref(
+        planes, cbps, torch.zeros(pos, dtype=out_dtype, device=cuda), offs)
+    got = torch.zeros(pos, dtype=out_dtype, device=cuda)
+    before = mct_cuda.plane_writeframe.launches
+    mct_cuda.plane_writeframe(planes, cbps, got, offs)
+    torch.cuda.synchronize()
+    assert mct_cuda.plane_writeframe.launches == before + 2
+    assert torch.equal(got, want)
+
+
+def _program_stream(route, tname):
+    """A 96x128 stream of `route`: "band" (3 resolution levels, every DWT
+    level at least 8x8), "flat" (6: levels under 8x8, a V3Program) or
+    "v2" (6, two HT layers: a BucketProgram), RGB with MCT except v2's
+    gray, so that every plane of v2 goes through plane_writeframe."""
     from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
 
-    img = np.random.default_rng(12).integers(0, 256, (96, 128, 3),
-                                             dtype=np.uint8)
-    data = encode_frame_htj2k(img, pred=int(tname == "53"), mct=True,
-                              nreslevels=3, log2_cblk_width=5,
-                              log2_cblk_height=5)
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    opts = dict(pred=int(tname == "53"), log2_cblk_width=5,
+                log2_cblk_height=5, nreslevels=3 if route == "band" else 6)
+    if route == "v2":
+        return encode_frame_htj2k(img[:, :, 0], refinement=True, ht_layers=2,
+                                  **opts)
+    return encode_frame_htj2k(img, mct=True, **opts)
+
+
+# what one decode of _program_stream(route) launches: coef_mosaic,
+# bucket_scatter, dwt_lift (the 96x128 plane's levels of at least 8x8:
+# 2 with 3 resolution levels, 4 with 6), dwt_small (once for the 6x8
+# level), plane_writeframe (once for v2's gray plane; MCT takes RGB)
+PROGRAM_LAUNCHES = {"band": [1, 0, 2, 0, 0], "flat": [1, 0, 4, 1, 0],
+                    "v2": [0, 1, 4, 1, 1]}
+
+
+@pytest.mark.parametrize("route", ["band", "flat", "v2"])
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_v3_program_on_the_card_runs_no_plain_stage(cuda, tname, route,
+                                                   monkeypatch):
+    """A V3Program (band-direct, or with levels under 8x8) or a
+    BucketProgram on CUDA tensors launches its kernels (coef_mosaic or
+    bucket_scatter once, dwt_small once for the levels under 8x8,
+    dwt_lift once a level, plane_writeframe for the planes without MCT),
+    exactly PROGRAM_LAUNCHES[route], which is what the program's
+    kernel_launches() says, and reaches neither the dequant, the prefill,
+    the mosaics, the scatter, the DC shift, nor the torch lifting (each
+    made to raise), giving the CPU decoder's bytes."""
+    from ffmpeg_ht_tpu_torch.models import assembly
+    from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+
+    data = _program_stream(route, tname)
     bitexact = tname != "float"
     want = Decoder(device="cpu", bitexact=bitexact).decode(data).tobytes()
 
@@ -844,16 +1087,35 @@ def test_v3_program_on_the_card_runs_no_plain_stage(cuda, tname,
         raise AssertionError("a plain stage ran on the card")
     for mod, name in ((coef_cuda, "coef_mosaic_ref"), (coef_cuda, "dequant"),
                       (coef_cuda, "prefill"), (coef_cuda, "mosaic_band"),
+                      (coef_cuda, "bucket_scatter_ref"),
+                      (dwt_cuda, "dwt_lift_program_ref"),
                       (dwt_torch, "dwt_level_ref"),
+                      (dwt_torch, "dwt_level_small_ref"),
                       (dwt_torch, "dwt_decode_bands"),
-                      (dwt_torch, "dwt_decode_flat")):
+                      (dwt_torch, "dwt_decode_flat"),
+                      (mct_cuda, "dc_shift_clip"),
+                      (mct_cuda, "plane_writeframe_ref")):
         monkeypatch.setattr(mod, name, refuse)
-    for k in list(dwt_torch._POLY_SR):
-        monkeypatch.setitem(dwt_torch._POLY_SR, k, refuse)
+    for table in (dwt_torch._POLY_SR, dwt_torch._SR):
+        for k in list(table):
+            monkeypatch.setitem(table, k, refuse)
+    progs, pack = [], assembly._Program.pack
+    monkeypatch.setattr(assembly._Program, "pack",
+                        lambda self, *a: progs.append(self) or pack(self, *a))
+    names = ("coef_mosaic", "bucket_scatter", "dwt_lift", "dwt_small",
+             "plane_writeframe")
+    counters = (coef_cuda.coef_mosaic, coef_cuda.bucket_scatter,
+                dwt_cuda.dwt_lift, dwt_cuda.dwt_small,
+                mct_cuda.plane_writeframe)
     dec = Decoder(device=cuda, bitexact=bitexact)
-    before = (coef_cuda.coef_mosaic.launches, dwt_cuda.dwt_lift.launches)
+    before = [f.launches for f in counters]
     got = dec.decode(data).tobytes()
-    assert dec.v3_frames == 1
-    assert (coef_cuda.coef_mosaic.launches - before[0],
-            dwt_cuda.dwt_lift.launches - before[1]) == (1, 2)
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    assert (dec.v3_frames, dec.v2_frames) == ((0, 1) if route == "v2"
+                                              else (1, 0))
+    assert len(progs) == 1
+    assert type(progs[0]).__name__ == ("BucketProgram" if route == "v2"
+                                       else "V3Program")
+    assert launched == PROGRAM_LAUNCHES[route] \
+        == [progs[0].kernel_launches()[k] for k in names]
     assert got == want

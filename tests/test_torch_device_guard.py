@@ -34,6 +34,10 @@ WRAPPERS = {
     # dwt_lift and dwt_lift_program launch through dwt_cuda._launch
     "dwt_lift": dwt_cuda._launch,
     "dwt_lift_program": dwt_cuda._launch,
+    # dwt_lift_program's small levels through dwt_small
+    "dwt_small": dwt_cuda.dwt_small,
+    "bucket_scatter": coef_cuda.bucket_scatter,
+    "plane_writeframe": mct_cuda.plane_writeframe,
 }
 
 
@@ -137,6 +141,17 @@ def test_device_check_still_raises(name, monkeypatch):
             dwt_cuda.LiftPlan([0, 16, 32, 48], [(4, 4)] * 4,
                               [(0, [(1, 2, 3)], [(0, 0)])],
                               mct_cuda.DWT97_INT), meta(64)),
+        "dwt_small": lambda: dwt_cuda.dwt_lift_program(
+            dwt_cuda.LiftPlan([0, 4, 8, 12], [(2, 2)] * 4,
+                              [(0, [(1, 2, 3)], [(0, 0)])],
+                              mct_cuda.DWT97_INT), meta(16)),
+        "bucket_scatter": lambda: coef_cuda.bucket_scatter(
+            [meta(4, 2, 2)], [(2, 2)],
+            [dict(dest=v, stride=v, magb=v, istep=v, scale97=v,
+                  fscale=meta(4, dtype=torch.float32))], v, v, 16,
+            mct_cuda.DWT97_INT, False),
+        "plane_writeframe": lambda: mct_cuda.plane_writeframe(
+            [meta(4, 4)], 10, meta(16, dtype=torch.int16), [0]),
     }
     with pytest.raises(ValueError, match="device"):
         calls[name]()

@@ -18,6 +18,7 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import json
 import os
@@ -108,11 +109,10 @@ def main():
                                   dev)
             top = [j for j, (_i, lev, _w, _h) in enumerate(plan.jobs)
                    if lev == ndec - 1]
-            top_plan = dwt_cuda.LiftPlan.of_jobs(
-                [tuple(int(v) for v in plan.table[j, 7:12]) for j in top], t)
             # the top level alone at the full call's places (timing only:
             # its LL is read from a scratch buffer of the full call's size)
-            top_plan.table[:, 1:7] = plan.table[top, 1:7]
+            top_plan = copy.copy(plan)
+            top_plan.table = plan.table[top]
             want = dwt_cuda.dwt_lift_program(plan, bands).view(torch.int32)
             out = torch.empty(plan.total, dtype=bands.dtype, device=dev)
             for r in rows:
