@@ -147,10 +147,12 @@ exits non-zero:
      ``plane_writeframe`` (DC shift + clip + pack of every plane without
      MCT) against their plain versions by bits, each with its time by
      CUDA events, bound, share, launches a call and ptxas registers
-     (``bucket_scatter`` beside an ``index_put_`` of its values); each
-     program's ms/frame, device operations and device-busy ms with the
-     kernels and with the plain stages forced (the c4 batch program's
-     operations must fall twentyfold from the 2395 of its torch stages);
+     (``bucket_scatter`` beside an ``index_put_`` of its values, with its
+     wrapper's host ms; ``dwt_small`` with the jobs that took each
+     storage and a latency bound beside its byte bound); each program's
+     ms/frame, device operations and device-busy ms with the kernels and
+     with the plain stages forced (the c4 batch program's operations must
+     fall twentyfold from the 2395 of its torch stages, to at most 40);
      the crop's two streams through ``Decoder.decode`` (counts reset
      before and read after, == source). ``--only programs`` runs phases
      1, 2 and 12 alone.
@@ -204,7 +206,7 @@ from ffmpeg_ht_tpu_torch.models.encoder import (encode_frame_htj2k,
 from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy, to_torch
 from ffmpeg_ht_tpu_torch.ops import (coef_cuda, dwt_cuda, dwt_torch,
                                      ht_refine, ht_scan, mct_cuda, wirepack)
-from ffmpeg_ht_tpu_torch.ops.dwt import DWT97, DWT97_INT
+from ffmpeg_ht_tpu_torch.ops.dwt import DWT53, DWT97, DWT97_INT
 from ffmpeg_ht_tpu_torch.utils import build, native
 from ffmpeg_ht_tpu_torch.utils.errors import J2KError, UnshardableBatch
 
@@ -227,6 +229,14 @@ C4_ENC = dict(depth=10, tile_width=1024, tile_height=1024,
 SMALL_ENC = dict(log2_cblk_width=5, log2_cblk_height=5, nreslevels=4,
                  refinement=True, ht_layers=2)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published, at the 700 W limit
+# dwt_small's latency bound: a plane's small levels are one chain of
+# dependent lifting steps, each at least one round trip through shared
+# memory (a store, a barrier, a load), after one load of the bands from
+# device memory and before one store of the outputs. The costs in SM
+# cycles are assumed (not measured here), at the card's maximum SM clock
+SMEM_ROUND_TRIP_CYCLES = 64
+DEVICE_LOAD_CYCLES = 600
+DEVICE_STORE_CYCLES = 600
 # BASELINE config 5 (bench.py:451-480): phase 3's natural frame and its
 # rolls by these columns, muxed into an MXF
 C5_ROLLS = (3, 7, 11)
@@ -293,6 +303,30 @@ def _gpu_name_power() -> str:
 def _bound(nbytes) -> float:
     """ms to move `nbytes` at the card's memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _max_sm_mhz() -> float:
+    """The card's maximum SM clock, MHz, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "-i", os.environ["CUDA_VISIBLE_DEVICES"],
+         "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def _small_latency_bound(plan) -> float:
+    """dwt_small's latency bound, ms, for `plan`'s small jobs: the longest
+    plane chain of lifting steps (a transform's steps on rows and on
+    columns a level, one for a line of one sample) at
+    SMEM_ROUND_TRIP_CYCLES each, plus one device load and one store."""
+    steps = 2 if plan.transform == DWT53 else 4
+    chains = [sum((steps if w > 1 else 1) + (steps if h > 1 else 1)
+                  for w, h in plan.small_table[lo:hi, 7:9].tolist())
+              for lo, hi in zip(plan.small_chains[:-1].tolist(),
+                                plan.small_chains[1:].tolist())]
+    cycles = max(chains) * SMEM_ROUND_TRIP_CYCLES + DEVICE_LOAD_CYCLES \
+        + DEVICE_STORE_CYCLES
+    return cycles / (_max_sm_mhz() * 1e3)
 
 
 def _cuda_ms(fn, reps: int, head_start: bool = False) -> float:
@@ -363,6 +397,20 @@ def _plain(fn, *a):
     res = fn(*a)
     torch.cuda.synchronize()
     return res, (time.perf_counter() - t1) * 1e3
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Host ms of one fn() call: `reps` calls queued behind a spin of the
+    stream (~1 ms a call), so that none waits on the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e6 * reps))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def _ptxas(log, names):
@@ -752,14 +800,7 @@ def _lift_check(prog, args, reps: int = 0):
         run = lambda: dwt_cuda.dwt_lift_program(prog.lift, bands)
         _r, lift_plain_ms = _plain(dwt_cuda.dwt_lift_program_ref, prog.lift,
                                    bands)
-        run()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(2e6 * reps))         # ~1 ms a call queued
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            run()
-        host_ms = (time.perf_counter() - t0) * 1e3 / reps
-        torch.cuda.synchronize()
+        host_ms = _host_ms(run, reps)
         # every band sample read once and every level's output written once
         lift.update(plain_ms=lift_plain_ms, ms=_cuda_ms(run, reps, True),
                     ms_by_level=[_cuda_ms(lambda: dwt_cuda.dwt_lift(jobs, t),
@@ -780,6 +821,10 @@ def _plain_stages():
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_ref"))
+    # a BucketProgram hands bucket_scatter its ScatterPlan, which the
+    # plain version does not take
+    coef_cuda.bucket_scatter = \
+        lambda *a, plan=None: coef_cuda.bucket_scatter_ref(*a)
     try:
         yield
     finally:
@@ -899,8 +944,8 @@ def _program_check(prog, args, frames: int, reps: int = 0):
         mus, _oks = prog.entropy(bargs)
         sin = (mus, prog.dims, bargs, pf_idx, pf_val, prog.total, t,
                prog.no_istep)
-        buf, n = launched("bucket_scatter",
-                          lambda: coef_cuda.bucket_scatter(*sin))
+        scatter = lambda: coef_cuda.bucket_scatter(*sin, plan=prog.scatter)
+        buf, n = launched("bucket_scatter", scatter)
         ref, plain_ms = _plain(coef_cuda.bucket_scatter_ref, *sin)
         m = dict(max_abs_err=_bits_err(buf, ref), launches_per_call=n)
         if m["max_abs_err"]:
@@ -919,8 +964,8 @@ def _program_check(prog, args, frames: int, reps: int = 0):
             # the real samples' mu read, the flat buffer written, the
             # prefill entries and the real lanes' six vectors read
             lanes = sum(a["nreal"] for a in bargs)
-            m.update(ms=_cuda_ms(lambda: coef_cuda.bucket_scatter(*sin),
-                                 reps, True),
+            m.update(ms=_cuda_ms(scatter, reps, True),
+                     host_ms=_host_ms(scatter, reps),
                      plain_ms=plain_ms,
                      bound_ms=_bound(4 * n_real + 4 * (prog.total + 1)
                                      + 8 * pf_idx.numel() + 24 * lanes),
@@ -977,7 +1022,9 @@ def _program_check(prog, args, frames: int, reps: int = 0):
     small = dict(max_abs_err=0, launches_per_call=n_small,
                  jobs=len(plan.small_table),
                  planes=len(plan.small_chains) - 1,
-                 samples=_job_samples(plan.small_table))
+                 samples=_job_samples(plan.small_table),
+                 shared_jobs=plan.small_shared,
+                 device_jobs=plan.small_device)
     lift = dict(max_abs_err=0, launches_per_call=n_lift,
                 jobs=len(plan.table), samples=_job_samples(plan.table),
                 strided=bucket)
@@ -987,14 +1034,14 @@ def _program_check(prog, args, frames: int, reps: int = 0):
         # once and its output written once)
         base = buf.data_ptr()
         if small["jobs"]:
-            tables = plan.small_tables_on(buf.device)
             alone = copy.copy(plan)
             alone.table = plan.table[:0]
             small.update(ms=_cuda_ms(lambda: dwt_cuda.dwt_small(
-                *tables, base, scratch, t), reps, True),
+                plan, base, scratch), reps, True),
                 plain_ms=_plain(dwt_cuda.dwt_lift_program_ref, alone,
                                 buf)[1],
-                bound_ms=_bound(8 * small["samples"]))
+                bound_ms=_bound(8 * small["samples"]),
+                latency_bound_ms=_small_latency_bound(plan))
         if lift["jobs"]:
             alone = copy.copy(plan)
             alone.small_table = plan.small_table[:0]
@@ -1059,9 +1106,18 @@ def _fmt_kernel(name, m):
     if "ms" not in m:
         return f"{name}: no work here"
     share = 100 * m["bound_ms"] / m["ms"]
+    extra = ""
+    if "host_ms" in m:
+        extra += f", wrapper host {m['host_ms']:.4f} ms"
+    if "latency_bound_ms" in m:
+        extra += (f", latency bound {m['latency_bound_ms']:.5f} ms "
+                  f"({100 * m['latency_bound_ms'] / m['ms']:.1f}%), jobs "
+                  f"in shared / device memory {m['shared_jobs']} / "
+                  f"{m['device_jobs']}")
     return (f"{name} == plain ({m['launches_per_call']} launch(es) a call): "
             f"kernel {m['ms']:.4f} ms, plain {m.get('plain_ms', 0):.2f} ms, "
-            f"bound {m['bound_ms']:.5f} ms (bytes), {share:.1f}% of bound")
+            f"bound {m['bound_ms']:.5f} ms (bytes), {share:.1f}% of bound"
+            + extra)
 
 
 # BASELINE config 4's frame (7680x4320, 1024x1024 tiles) has four tile
@@ -1075,6 +1131,9 @@ C12_SINGLE = {k: v for k, v in C4_ENC.items()
 # this phase's kernels: tools/profile_torch_v3.py --config c4 on an H100
 # 80GB HBM3 at 700 W (PERF.md, section 5)
 C4_PROGRAM_OPS_BEFORE = 2395
+# and the most it may run now: its kernels, the bitmap's memset and the ok
+# flag's operations, no torch op a bucket
+C4_PROGRAM_OPS_MAX = 40
 
 
 def _phase12(dev, c4_data):
@@ -1138,9 +1197,11 @@ def _phase12(dev, c4_data):
           f"operations against {C4_PROGRAM_OPS_BEFORE} before this phase's "
           f"kernels ({C4_PROGRAM_OPS_BEFORE / c4p['device_ops']:.1f}x "
           "fewer)")
-    if 20 * c4p["device_ops"] > C4_PROGRAM_OPS_BEFORE:
+    if 20 * c4p["device_ops"] > C4_PROGRAM_OPS_BEFORE \
+            or c4p["device_ops"] > C4_PROGRAM_OPS_MAX:
         raise RuntimeError("phase 12: the c4 batch program's device "
-                           "operations fell less than twentyfold")
+                           "operations fell less than twentyfold, or "
+                           f"exceed {C4_PROGRAM_OPS_MAX}")
 
     # the crop through the public entry point: one decoder a stream
     paths = {}
@@ -1164,7 +1225,8 @@ def _phase12(dev, c4_data):
         print(f"phase 12 {name} Decoder.decode: == source "
               f"({frame.fmt.name}), route (v3, v2, host) {route}, launches "
               f"{counts}")
-    regs = _ptxas(build.load().log, ("scatter_kernel", "small_levels",
+    regs = _ptxas(build.load().log, ("scatter_lanes", "scatter_zeros",
+                                     "scatter_prefill", "small_levels",
                                      "writeframe_kernel"))
     print("phase 12 ptxas: " + "; ".join(f"{k}: {v}" for k, v in
                                          regs.items())
@@ -2761,7 +2823,7 @@ def main(argv=None) -> int:
                program={c: c12[c]["program"] for c in c12})
           for k, where, main, kn in (
               ("bucket_scatter", "ffmpeg_ht_tpu/models/decoder.py:481",
-               "c4_batch", "scatter_kernel"),
+               "c4_batch", "scatter_"),
               ("dwt_small", "ffmpeg_ht_tpu/ops/dwt_jax.py:362", "crop_v3",
                "small_levels"),
               ("plane_writeframe", "ffmpeg_ht_tpu/models/assembly.py:389",

@@ -19,25 +19,45 @@
 // result is the whole-sample symmetric extension of period 2 (n - 1). Each
 // lifting step writes one parity and reads the other, and keeps that
 // extension symmetric, so lifting the line in place, a step at a time,
-// with every neighbour read from its mirror inside the line (period 2 (n -
-// 1)), gives the reference's samples bit for bit. A line of one sample is
-// scaled instead (the reference's n = 1 rules: the 5/3 halves an odd
-// sample, the 9/7 multiplies by K / 2 or X).
+// with every neighbour read from its mirror inside the line gives the
+// reference's samples bit for bit. A step's neighbours are one sample
+// away, so only a line's two ends reflect: position -1 reads 1 and n
+// reads n - 2, with no modulo. A line of one sample is scaled instead (the
+// reference's n = 1 rules: the 5/3 halves an odd sample, the 9/7
+// multiplies by K / 2 or X).
 //
-// What bounds it on the H100: nothing the card's rates see. A small level
-// of a real plane holds a few hundred samples (the 8K frame's bottom tiles:
-// 32 x 7 and 16 x 7), so the launch and one dependent chain of reads are
-// the time. The design therefore puts all of a program's small levels in
-// one launch, a block a plane: the block walks its plane's small levels in
-// order (each reads the one before from the output buffer), a thread a
-// row, then, after a barrier, a thread a column. A row thread gathers its
-// band row's L and H halves into the output row at their interleaved
-// positions (and the row's interleaved position), then lifts it in place;
-// a column thread lifts its column in place and applies the integer 9/7's
-// final shift on a plane's last level. No line is held whole anywhere but
-// in device memory (L1 and L2 keep these few samples), so a level has no
-// length limit. The plane's levels of at least 8 x 8 follow in
-// csrc/dwt_lift.cu's launches on the same stream.
+// What bounds it on the H100: latency, not bytes or operations. A small
+// level of a real plane holds a few hundred samples (the 8K frame's bottom
+// tiles: 32 x 7 and 16 x 7), so a plane's levels are one chain of
+// dependent steps: levels x (the row steps + the column steps) rounds
+// through memory, plus one load of the bands and one store of each
+// output. The design keeps that chain short and on chip:
+//
+//   Parity-parallel steps. A step updates every sample of one parity of
+//     every line of the level at once, a thread a sample (the block's 256
+//     threads loop over larger levels), then one barrier; a level takes
+//     its row steps, then its column steps. Threads map to samples by
+//     shifts and masks (a line's positions of one parity rounded up to a
+//     power of two), no division.
+//   Shared memory. A block takes a plane's small levels in order. Those
+//     that fit kSharedBytes together (ops/dwt_cuda.LiftPlan decides,
+//     staging a prefix of the plane's levels, and gives each its offset)
+//     live in dynamic shared memory: the block first loads every staged
+//     level's HL, LH and HH samples, and the first level's LL, to their
+//     interleaved places in one wave, then lifts; a level's output is
+//     written to device memory once, and into the next level's LL places
+//     in shared memory in the same pass. A level that does not fit (the
+//     5 x 70000 lines) runs the same steps on its output in device memory,
+//     with the same barriers (a block sees its own writes after one):
+//     one algorithm, two places for the samples. A level has no length
+//     limit.
+//   The table. A plane's rows sit at a fixed place in the device table
+//     (kSmallInts int64 a row, maxchain rows a plane), so a block reads
+//     them in one load; they live in static shared memory.
+//
+// A program's small levels take one launch, a block a plane, a
+// programmatic dependent of the kernel before it; the plane's levels of
+// at least 8 x 8 follow in csrc/dwt_lift.cu's launches on the same stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,121 +66,212 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kJobInts = 14;             // the table row of csrc/dwt_lift.cu
+constexpr int kThreads = 256;
+constexpr int kSmallInts = 15;           // csrc/dwt_lift.cu's 14 + the
+                                         // shared-memory offset (-1: device
+                                         // memory)
+constexpr int kMaxChain = 33;            // small levels a plane
+constexpr int kSharedBytes = 40960;      // dynamic shared memory a block
+                                         // (with the rows, under 48 KB)
 
-// i (an offset from the line's first sample) mirrored into [0, n), n >= 2:
-// the whole-sample symmetric extension, period 2 (n - 1)
-__device__ __forceinline__ int reflect(int i, int n) {
-  const int period = 2 * (n - 1);
-  int r = i % period;
-  if (r < 0) r += period;
-  return r < n ? r : period - r;
+// ceil(log2(n)) for n >= 1
+__device__ __forceinline__ int ceil_log2(int n) {
+  return n > 1 ? 32 - __clz(n - 1) : 0;
 }
 
-// Inverse lifting of the n samples p[k * s], k < n, which sit at the
-// absolute positions i0 + k (i0's parity is what counts), in place.
+// A level's samples into P (its output, h x w, in shared or device memory)
+// from its bands, each at its interleaved place; the LL's only `with_ll`.
 template <class Op>
-__device__ void lift_line(typename Op::T* p, int64_t s, int n, int i0) {
-  if (n == 1) {
-    p[0] = Op::single(p[0], i0 & 1);
-    return;
-  }
-  for (int st = 0; st < Op::kSteps; ++st) {
-    // even steps update the even absolute positions, odd steps the odd
-    for (int k = ((i0 ^ st) & 1); k < n; k += 2) {
-      const typename Op::T a = p[reflect(k - 1, n) * s];
-      const typename Op::T b = p[reflect(k + 1, n) * s];
-      p[k * s] = Op::step(st, p[k * s], a, b);
-    }
-  }
-}
-
-// One level: `d` its table row, `in` the input buffer, `out` the output
-// buffer (element offsets into them).
-template <class Op>
-__device__ void small_level(const int64_t* __restrict__ d,
-                            const typename Op::T* in,
-                            typename Op::T* out) {
+__device__ __forceinline__ void gather(const int64_t* d,
+                                       const typename Op::T* in,
+                                       const typename Op::T* out,
+                                       typename Op::T* P, bool with_ll) {
   using T = typename Op::T;
   const int w = (int)d[7], h = (int)d[8], mh = (int)d[9], mv = (int)d[10];
-  const int nE = (w + 1 - mh) >> 1, nO = w - nE, nEv = (h + 1 - mv) >> 1;
+  const int nE = (w + 1 - mh) >> 1, nO = w - nE;
   const T* ll = (d[1] ? out : in) + d[2];
   const T* hl = in + d[3];
   const T* lh = in + d[4];
   const T* hh = in + d[5];
-  T* dst = out + d[6];
   const int64_t lls = d[12] ? d[12] : nE;
   const int64_t hls = d[13] ? d[13] : nO;
   const int64_t lhs = d[13] ? d[13] : nE;
   const int64_t hhs = d[13] ? d[13] : nO;
-  // rows: band row r (L rows first, then H rows) to its interleaved row
-  for (int r = threadIdx.x; r < h; r += blockDim.x) {
-    const bool low = r < nEv;
-    const int rr = low ? r : r - nEv;
-    const int y = low ? 2 * rr + mv : 2 * rr + 1 - mv;
-    const T* L = low ? ll + rr * lls : lh + rr * lhs;
-    const T* H = low ? hl + rr * hls : hh + rr * hhs;
-    T* row = dst + (int64_t)y * w;
-    for (int j = 0; j < nE; ++j) row[2 * j + mh] = L[j];
-    for (int j = 0; j < nO; ++j) row[2 * j + 1 - mh] = H[j];
-    lift_line<Op>(row, 1, w, mh);
+  const int lg = ceil_log2(w);
+  for (int i = threadIdx.x; i < (h << lg); i += kThreads) {
+    const int x = i & ((1 << lg) - 1), y = i >> lg;
+    if (x >= w) continue;
+    // absolute positions p, q: E (low) at even ones
+    const int p = y + mv, q = x + mh;
+    const bool lr = !(p & 1), lc = !(q & 1);
+    const int64_t r = (p >> 1) - (lr ? mv : 0), c = (q >> 1) - (lc ? mh : 0);
+    if (lr && lc && !with_ll) continue;
+    const T* s = lr ? (lc ? ll + r * lls : hl + r * hls)
+                    : (lc ? lh + r * lhs : hh + r * hhs);
+    P[y * w + x] = s[c];
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < w; c += blockDim.x) {
-    lift_line<Op>(dst + c, w, h, mv);
-    if (d[11])
-      for (int y = 0; y < h; ++y)
-        dst[c + (int64_t)y * w] = Op::preshift(dst[c + (int64_t)y * w]);
-  }
-  __syncthreads();
 }
 
-// A block a plane: its small levels, table rows [chains[b], chains[b + 1]),
-// in order.
+// The level's row steps, then its column steps, in place on P (h x w), a
+// barrier after each.
+template <class Op>
+__device__ __forceinline__ void lift(typename Op::T* P, int w, int h, int mh,
+                                     int mv) {
+  using T = typename Op::T;
+  if (w == 1) {
+    for (int y = threadIdx.x; y < h; y += kThreads)
+      P[y] = Op::single(P[y], mh & 1);
+    __syncthreads();
+  } else {
+    const int lg = ceil_log2((w + 1) >> 1);
+#pragma unroll
+    for (int st = 0; st < Op::kSteps; ++st) {
+      // even steps update the even absolute positions, odd steps the odd
+      const int o = (st ^ mh) & 1;
+      for (int i = threadIdx.x; i < (h << lg); i += kThreads) {
+        const int x = 2 * (i & ((1 << lg) - 1)) + o;
+        if (x >= w) continue;
+        T* row = P + (i >> lg) * w;
+        const T a = row[x == 0 ? 1 : x - 1];
+        const T b = row[x == w - 1 ? w - 2 : x + 1];
+        row[x] = Op::step(st, row[x], a, b);
+      }
+      __syncthreads();
+    }
+  }
+  if (h == 1) {
+    for (int x = threadIdx.x; x < w; x += kThreads)
+      P[x] = Op::single(P[x], mv & 1);
+    __syncthreads();
+  } else {
+    const int lg = ceil_log2(w);
+#pragma unroll
+    for (int st = 0; st < Op::kSteps; ++st) {
+      const int o = (st ^ mv) & 1;
+      for (int i = threadIdx.x; i < (((h + 1) >> 1) << lg); i += kThreads) {
+        const int x = i & ((1 << lg) - 1), y = 2 * (i >> lg) + o;
+        if (x >= w || y >= h) continue;
+        const T a = P[(y == 0 ? 1 : y - 1) * w + x];
+        const T b = P[(y == h - 1 ? h - 2 : y + 1) * w + x];
+        P[y * w + x] = Op::step(st, P[y * w + x], a, b);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// A block a plane: its small levels, rows [0, n) of its maxchain rows, in
+// order.
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-small_levels(const int64_t* __restrict__ table,
-             const int64_t* __restrict__ chains, const void* in, void* out) {
+small_levels(const int64_t* __restrict__ table, int maxchain,
+             const void* in_v, void* out_v) {
   using T = typename Op::T;
-  for (int64_t j = chains[blockIdx.x]; j < chains[blockIdx.x + 1]; ++j)
-    small_level<Op>(table + j * kJobInts, static_cast<const T*>(in),
-                    static_cast<T*>(out));
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int64_t rows[kMaxChain * kSmallInts];
+  T* S = reinterpret_cast<T*>(smem);
+  const T* in = static_cast<const T*>(in_v);
+  T* out = static_cast<T*>(out_v);
+  // let the next launch (dwt_lift's first level) be scheduled now; read
+  // nothing before the kernel before this one has finished
+  asm volatile("griddepcontrol.launch_dependents;\n");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int64_t* mine = table + (int64_t)blockIdx.x * maxchain * kSmallInts;
+  for (int i = threadIdx.x; i < maxchain * kSmallInts; i += kThreads)
+    rows[i] = mine[i];
+  __syncthreads();
+  int n = 0;                               // the plane's levels (w > 0)
+  while (n < maxchain && rows[n * kSmallInts + 7] > 0) ++n;
+  // every staged level's bands in one wave (a later level's LL comes from
+  // the level before it)
+  for (int k = 0; k < n && rows[k * kSmallInts + 14] >= 0; ++k) {
+    const int64_t* d = rows + k * kSmallInts;
+    gather<Op>(d, in, out, S + d[14], k == 0);
+  }
+  __syncthreads();
+  for (int k = 0; k < n; ++k) {
+    const int64_t* d = rows + k * kSmallInts;
+    const int w = (int)d[7], h = (int)d[8];
+    T* dst = out + d[6];
+    if (d[14] < 0) {                       // in device memory
+      gather<Op>(d, in, out, dst, true);
+      __syncthreads();
+      lift<Op>(dst, w, h, (int)d[9], (int)d[10]);
+      if (d[11])
+        for (int i = threadIdx.x; i < w * h; i += kThreads)
+          dst[i] = Op::preshift(dst[i]);
+      __syncthreads();
+      continue;
+    }
+    T* P = S + d[14];
+    lift<Op>(P, w, h, (int)d[9], (int)d[10]);
+    // the output, once; and the next staged level's LL
+    const int64_t* nx = k + 1 < n && d[kSmallInts + 14] >= 0
+                            ? d + kSmallInts : nullptr;
+    T* N = nx ? S + nx[14] : nullptr;
+    const int w2 = nx ? (int)nx[7] : 0, mh2 = nx ? (int)nx[9] : 0;
+    const int mv2 = nx ? (int)nx[10] : 0;
+    const int lg = ceil_log2(w);
+    for (int i = threadIdx.x; i < (h << lg); i += kThreads) {
+      const int x = i & ((1 << lg) - 1), y = i >> lg;
+      if (x >= w) continue;
+      const T v = P[y * w + x];
+      dst[y * w + x] = d[11] ? Op::preshift(v) : v;
+      if (N) N[(2 * y + mv2) * w2 + 2 * x + mh2] = v;
+    }
+    __syncthreads();
+  }
+}
+
+template <class Op>
+int launch(const int64_t* table, int nplanes, int maxchain, int smem,
+           const void* in, void* out, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3(nplanes);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, small_levels<Op>, table,
+                                             maxchain, in, out);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point (ctypes). `table`: device array of kJobInts int64
-// values a job (csrc/dwt_lift.cu's row: level, ll_out, ll, hl, lh, hh, out,
-// w, h, mh, mv, preshift, ll_stride, band_stride; offsets and strides in
-// elements), grouped by plane, each plane's levels in order; `chains`:
-// device array of nchains + 1 int64 row indices, plane b's rows from
-// chains[b] to chains[b + 1]. Every row must be a level of 1 to 2^31 - 1
-// samples on each side with w < 8 or h < 8, parities and flags 0 or 1,
-// preshift only in mode 1, the first row of a plane reading its LL from
-// `in` (ll_out 0): ops/dwt_cuda.LiftPlan builds and checks the table on
-// the host. `in` and `out` must not overlap. mode: 0 = 5/3, 1 = integer
-// 9/7, 2 = float 9/7 (int32 or float32 samples). One launch on `stream`,
-// no synchronisation; returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unknown mode or no plane.
-extern "C" int dwt_small_launch(const int64_t* table, const int64_t* chains,
-                                int nchains, const void* in, void* out,
-                                int mode, void* stream) {
-  if (nchains < 1 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+// Plain C entry point (ctypes). `table`: device array of nplanes x maxchain
+// rows of kSmallInts int64 values (csrc/dwt_lift.cu's row: level, ll_out,
+// ll, hl, lh, hh, out, w, h, mh, mv, preshift, ll_stride, band_stride;
+// offsets and strides in elements; then the level's offset in the block's
+// shared memory, in elements, or -1 for device memory): plane b's levels in
+// order from row b * maxchain, the rest of its rows 0 (w = 0 ends a plane).
+// Every level must have 1 to 2^31 - 1 samples on each side with w < 8 or
+// h < 8, parities and flags 0 or 1, preshift only in mode 1, the first
+// level of a plane reading its LL from `in` (ll_out 0), the staged levels
+// a prefix of the plane's within `smem` bytes, and h << ceil(log2(w)) and
+// w << ceil(log2(h)) under 2^31: ops/dwt_cuda.LiftPlan builds and checks
+// the table on the host. `in` and `out` must not overlap. mode: 0 = 5/3,
+// 1 = integer 9/7, 2 = float 9/7 (int32 or float32 samples). One launch on
+// `stream`, no synchronisation; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unknown mode, no plane, a chain longer than
+// kMaxChain or more than kSharedBytes of shared memory.
+extern "C" int dwt_small_launch(const int64_t* table, int nplanes,
+                                int maxchain, int smem, const void* in,
+                                void* out, int mode, void* stream) {
+  if (nplanes < 1 || maxchain < 1 || maxchain > kMaxChain || smem < 0
+      || smem > kSharedBytes || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
-      small_levels<Lift53><<<nchains, kThreads, 0, s>>>(table, chains, in,
-                                                        out);
-      break;
+      return launch<Lift53>(table, nplanes, maxchain, smem, in, out, s);
     case 1:
-      small_levels<Lift97i><<<nchains, kThreads, 0, s>>>(table, chains, in,
-                                                         out);
-      break;
+      return launch<Lift97i>(table, nplanes, maxchain, smem, in, out, s);
     default:
-      small_levels<Lift97f><<<nchains, kThreads, 0, s>>>(table, chains, in,
-                                                         out);
-      break;
+      return launch<Lift97f>(table, nplanes, maxchain, smem, in, out, s);
   }
-  return (int)cudaGetLastError();
 }

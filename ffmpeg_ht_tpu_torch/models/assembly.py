@@ -495,8 +495,11 @@ class BucketProgram(_Program):
                          wire_pack=wire_pack)
         self.shapes = tuple(shapes)
         self.dims = [(w, h) for _qw, _qh, w, h, _m, _r in self.shapes]
+        self.scatter = coef_cuda.ScatterPlan(
+            [(2 * qh, 2 * qw) for qw, qh, *_r in self.shapes], self.dims)
         self.lift = flat_lift_plan(self.planes, self.borders, self.ndecs,
                                    self.transform, self.total + 1)
+        self._lane_dims = {}    # the cleanup's (qws, qhs), ht_scan's cache
 
     def coef_launches(self) -> int:
         """``bucket_scatter`` once each ``coef_cuda.MAX_BUCKETS`` buckets
@@ -512,7 +515,8 @@ class BucketProgram(_Program):
         for (qw, qh, w, h, msc, refined), a in zip(self.shapes, bucket_args):
             mu, sig, ok = decode_cleanup_scan_sig(
                 a["msw"], a["melw"], a["vlcw"], a["pLSB"], a["maxbp"],
-                a["ms_lim"], a["mel_lim"], qw, qh, msc, a["nreal"])
+                a["ms_lim"], a["mel_lim"], qw, qh, msc, a["nreal"],
+                dims_cache=self._lane_dims)
             if refined:
                 mu = decode_refinement_scan(
                     mu, sig, a["spw"], a["mrw"], a["pLSB"], a["has_sp"],
@@ -527,7 +531,7 @@ class BucketProgram(_Program):
         mus, oks = self.entropy(bucket_args)
         flat = coef_cuda.bucket_scatter(
             mus, self.dims, bucket_args, pf_idx, pf_val, self.total,
-            self.transform, self.no_istep)
+            self.transform, self.no_istep, plan=self.scatter)
         scratch = dwt_cuda.dwt_lift_program(self.lift, flat)
         outs = [flat[off:off + ph * pw].view(ph, pw) if last is None
                 else self.lift.view(scratch, last)

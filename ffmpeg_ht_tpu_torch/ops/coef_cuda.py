@@ -21,8 +21,11 @@ mosaic launch, then one prefill launch) and nothing else.
 one flat coefficient buffer (each tile-component plane's quadrant
 pyramid) after the sparse prefill. CPU tensors take
 ``bucket_scatter_ref`` (``dequant`` and index puts, the program's torch
-ops before); CUDA tensors launch ``csrc/bucket_scatter.cu`` (a memset,
-the prefill launch, one bucket launch each ``MAX_BUCKETS`` buckets).
+ops before); CUDA tensors launch ``csrc/bucket_scatter.cu`` (one lane
+pass each ``MAX_BUCKETS`` buckets, which marks the samples it writes in a
+bitmap, then zeros where no lane wrote, then the prefill where no lane
+wrote). A ``ScatterPlan``, built once per bucket layout, holds the launch
+table's shapes, so that a call fills in only the tensors' addresses.
 """
 
 from __future__ import annotations
@@ -244,8 +247,64 @@ def bucket_scatter_ref(mus, dims, lanes, pf_idx, pf_val, total: int,
     return flat
 
 
+def _check(t, name, dtype, dev, didx, shape):
+    """check_tensor for a tensor of a known shape, fast when it passes
+    (`didx`: `dev` as ``Tensor.get_device()`` numbers it)."""
+    if t.dtype is not dtype or t.get_device() != didx or t.shape != shape \
+            or not t.is_contiguous():
+        check_tensor(t, name, dtype, dev, len(shape), shape[0])
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+class ScatterPlan:
+    """``bucket_scatter``'s launch table for one bucket layout, built once
+    (a ``BucketProgram`` holds one): each bucket's raster ``(bh, bw)`` and
+    codeblock ``(w, h)``, checked here, in the table's shape columns (the
+    kernel's row: mu, dest, stride, magb, istep, scale97, fscale
+    addresses, then n, bh, bw, h, w). ``fill`` checks a call's tensors and
+    writes their addresses and lane counts."""
+
+    def __init__(self, rasters, dims):
+        self.rasters = [tuple(r) for r in rasters]
+        self.dims = [tuple(d) for d in dims]
+        if len(self.rasters) != len(self.dims):
+            raise ValueError("one raster and one (w, h) a bucket")
+        for (bh, bw), (w, h) in zip(self.rasters, self.dims):
+            if not (0 <= w <= bw and 0 <= h <= bh):
+                raise ValueError(f"a {w}x{h} codeblock in a {bw}x{bh} "
+                                 "raster")
+        self.table = np.zeros((len(self.dims), 12), np.int64)
+        if len(self.dims):
+            self.table[:, 8:10] = self.rasters
+            self.table[:, 10] = [h for _w, h in self.dims]
+            self.table[:, 11] = [w for w, _h in self.dims]
+
+    def fill(self, mus, lanes, dev):
+        """The launch table with the addresses and lane counts of `mus`
+        and `lanes` (on `dev`); raises on a tensor of another dtype,
+        device or shape, or not contiguous."""
+        if not len(mus) == len(lanes) == len(self.dims):
+            raise ValueError("one mu, one (w, h) and one lane map a bucket")
+        didx = -1 if dev.type == "cpu" else dev.index
+        cols = []
+        for mu, a, (bh, bw) in zip(mus, lanes, self.rasters):
+            n = mu.shape[0] if mu.dim() else 0
+            _check(mu, "mu", torch.int32, dev, didx, (n, bh, bw))
+            row = [mu.data_ptr()]
+            for name, dt in _LANE_VECTORS:
+                t = a[name]
+                _check(t, name, dt, dev, didx, (n,))
+                row.append(t.data_ptr())
+            row.append(n)
+            cols.append(row)
+        if cols:
+            self.table[:, :8] = cols
+        return self.table
+
+
 def bucket_scatter(mus, dims, lanes, pf_idx, pf_val, total: int,
-                   transform: int, no_istep: bool):
+                   transform: int, no_istep: bool, plan=None):
     """The flat coefficient buffer of a v2 program: ``total + 1`` samples
     (int32; float32 for DWT97), the last one a trash slot that reads 0.
 
@@ -254,9 +313,10 @@ def bucket_scatter(mus, dims, lanes, pf_idx, pf_val, total: int,
     (a mapping with "dest", "stride", "magb", "istep", "scale97": N
     int32, "fscale": N float32; a pad lane has dest < 0); `pf_idx` (int32,
     ``total`` for a pad) and `pf_val` (the buffer's dtype) the prefill.
-    Lane samples are written after the prefill, over it where they meet.
-    A CUDA tensor takes one call of the kernel's entry point (a memset,
-    the prefill, one launch each MAX_BUCKETS buckets, counted); a CPU
+    Lane samples win over prefill entries where they meet. `plan` is the
+    layout's ``ScatterPlan`` (built here when None). A CUDA tensor takes
+    one call of the kernel's entry point (one lane launch each MAX_BUCKETS
+    buckets, counted; the zeros and the prefill ride on the call); a CPU
     tensor the plain version."""
     if transform not in _MODE:
         raise ValueError(f"unknown transform {transform}")
@@ -266,31 +326,22 @@ def bucket_scatter(mus, dims, lanes, pf_idx, pf_val, total: int,
     dtype = torch.float32 if transform == DWT97 else torch.int32
     check_tensor(pf_idx, "pf_idx", torch.int32, dev, 1, pf_idx.shape[0])
     check_tensor(pf_val, "pf_val", dtype, dev, 1, pf_idx.shape[0])
-    mus, dims, lanes = list(mus), list(dims), list(lanes)
-    if not len(mus) == len(dims) == len(lanes):
-        raise ValueError("one mu, one (w, h) and one lane map a bucket")
-    rows = []
-    for mu, (w, h), a in zip(mus, dims, lanes):
-        check_tensor(mu, "mu", torch.int32, dev, 3, mu.shape[0])
-        n, bh, bw = mu.shape
-        if not (0 <= w <= bw and 0 <= h <= bh):
-            raise ValueError(f"a {w}x{h} codeblock in a {bw}x{bh} raster")
-        for name, dt in _LANE_VECTORS:
-            check_tensor(a[name], name, dt, dev, 1, n)
-        rows.append([mu.data_ptr()] + [a[k].data_ptr()
-                                       for k, _d in _LANE_VECTORS]
-                    + [n, bh, bw, h, w])
+    if plan is None:
+        plan = ScatterPlan([tuple(m.shape[1:]) for m in mus], dims)
+    elif list(map(tuple, dims)) != plan.dims:
+        raise ValueError("dims differ from the plan's")
+    table = plan.fill(mus, lanes, dev)
     if dev.type == "cpu":
         return bucket_scatter_ref(mus, dims, lanes, pf_idx, pf_val, total,
                                   transform, no_istep)
-    table = np.array(rows, np.int64).reshape(-1, 12)
     out = torch.empty(total + 1, dtype=dtype, device=dev)
+    bits = torch.empty((total + 32) // 32, dtype=torch.int32, device=dev)
     n = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = build.load().lib.bucket_scatter_launch(
             table.ctypes.data, len(table), pf_idx.data_ptr(),
             pf_val.data_ptr(), pf_idx.shape[0], total, _MODE[transform],
-            int(no_istep), out.data_ptr(),
+            int(no_istep), out.data_ptr(), bits.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream, ctypes.addressof(n))
     build.check(err, "bucket_scatter_launch")
     bucket_scatter.launches += n.value
@@ -303,6 +354,6 @@ def bucket_scatter_launches(nbuckets: int) -> int:
     return -(-nbuckets // MAX_BUCKETS)
 
 
-bucket_scatter.launches = 0   # bucket launches (one a MAX_BUCKETS
-                              # buckets; the memset and the prefill ride
-                              # on the call)
+bucket_scatter.launches = 0   # lane-pass launches (one a MAX_BUCKETS
+                              # buckets; the bitmap's memset, the zeros and
+                              # the prefill ride on the call)

@@ -17,7 +17,10 @@ Two entry points run levels of the inverse DWT (5/3, integer 9/7, float
 
 CUDA tensors launch ``csrc/dwt_small.cu`` for the levels under 8 in a
 dimension (every such level of a plan in one launch, a block a plane;
-they are the first levels of their planes) and then ``csrc/dwt_lift.cu``
+they are the first levels of their planes; each lifting step updates one
+parity of every line at once, in shared memory for the levels that fit
+``SMALL_SHARED_BYTES`` and in device memory for the others) and then
+``csrc/dwt_lift.cu``
 for the others (one launch a level, 48 jobs a launch at most: a
 persistent grid over tiles of ``TILE_ROWS`` x ``tile_cols(transform)``
 output samples, each lifted from a window that reaches
@@ -52,6 +55,12 @@ HALO_PAIRS = {DWT53: 1, DWT97_INT: 2, DWT97: 2}
 # int64 values a job in the table (kJobInts): level, ll_out, ll, hl, lh,
 # hh, out, w, h, mh, mv, preshift, ll_stride, band_stride
 _JOB_INTS = 14
+# a small job's row (kSmallInts): the same, then its offset in the block's
+# shared memory in samples, -1 for device memory
+_SMALL_INTS = 15
+SMALL_SHARED_BYTES = 40960    # shared memory a dwt_small block stages its
+                              # plane's levels in (kSharedBytes)
+SMALL_MAX_CHAIN = 33          # small levels a plane (kMaxChain)
 
 
 def tile_cols(transform: int) -> int:
@@ -62,6 +71,26 @@ def tile_cols(transform: int) -> int:
 def is_small(w: int, h: int) -> bool:
     """A level under 8 samples in a dimension: ``dwt_small``'s."""
     return w < 8 or h < 8
+
+
+def _ceil_log2(n: int) -> int:
+    return (n - 1).bit_length() if n > 1 else 0
+
+
+def _stage(chain, itemsize: int):
+    """The small job rows of one plane with their shared-memory offsets
+    (a prefix of the plane's levels, while they fit SMALL_SHARED_BYTES
+    together; -1 for the rest) and the staged bytes."""
+    rows, off = [], 0
+    for r in chain:
+        n = r[7] * r[8]
+        if off >= 0 and (off + n) * itemsize <= SMALL_SHARED_BYTES:
+            rows.append(r + (off,))
+            off += n
+        else:
+            rows.append(r + (-1,))
+            off = -1
+    return rows, sum(r[7] * r[8] for r in rows if r[-1] >= 0) * itemsize
 
 
 def _split(ll, hl, lh, hh, mh, mv):
@@ -120,11 +149,15 @@ class LiftPlan:
     empty level (a side of 0) is no job: its LL and the next level's are
     empty too. Levels under 8 in a dimension go to ``small_table`` (grouped
     by plane, ``small_chains`` the row where each plane's start, then the
-    end) and run first; the others to ``table``, level by level (every
-    plane's level 0, then every plane's level 1, ...). ``jobs[i]`` is
-    ``(plane, level, w, h)``, ``last[p]`` plane p's last job (None for a
-    plane without levels); ``lift_launches`` and ``small_launches`` are
-    each kernel's launches in one call, ``launches`` both."""
+    end; a row is a job's ``table`` row and its offset in ``dwt_small``'s
+    shared memory, -1 for device memory: a prefix of each plane's levels
+    that fits ``SMALL_SHARED_BYTES``, ``small_shared`` jobs of them,
+    ``small_device`` the others, ``small_smem`` the bytes a block stages)
+    and run first; the others to ``table``, level by level (every plane's
+    level 0, then every plane's level 1, ...). ``jobs[i]`` is ``(plane,
+    level, w, h)``, ``last[p]`` plane p's last job (None for a plane
+    without levels); ``lift_launches`` and ``small_launches`` are each
+    kernel's launches in one call, ``launches`` both."""
 
     def __init__(self, band_offsets, band_shapes, planes, transform: int,
                  band_strides=None, buffer_size=None):
@@ -173,6 +206,9 @@ class LiftPlan:
                     if prev is not None and not is_small(*self.jobs[prev][2:]):
                         raise ValueError(f"plane {i}: a {w}x{h} level after "
                                          "one of at least 8x8")
+                    if max(h << _ceil_log2(w), w << _ceil_log2(h)) >= 1 << 31:
+                        raise ValueError(f"a {w}x{h} level is too large for "
+                                         "dwt_small")
                     small.setdefault(i, []).append(row)
                 else:
                     big.append(row)
@@ -184,22 +220,37 @@ class LiftPlan:
         self.total = pos
         self.table = np.array(big, np.int64).reshape(-1, _JOB_INTS)
         chains = [small[i] for i in sorted(small)]
-        self.small_table = np.array([r for c in chains for r in c],
-                                    np.int64).reshape(-1, _JOB_INTS)
+        if any(len(c) > SMALL_MAX_CHAIN for c in chains):
+            raise ValueError(f"a plane of more than {SMALL_MAX_CHAIN} "
+                             "levels under 8x8")
+        itemsize = _dtype(transform).itemsize
+        staged = [_stage(c, itemsize) for c in chains]
+        self.small_table = np.array([r for c, _b in staged for r in c],
+                                    np.int64).reshape(-1, _SMALL_INTS)
         self.small_chains = np.cumsum([0] + [len(c) for c in chains]) \
             .astype(np.int64)
+        self.small_shared = int((self.small_table[:, 14] >= 0).sum())
+        self.small_device = len(self.small_table) - self.small_shared
+        self.small_smem = max((b for _c, b in staged), default=0)
+        self.small_maxchain = max((len(c) for c in chains), default=0)
         self.lift_launches = sum(-(-n // MAX_JOBS) for n in per_level.values())
         self.small_launches = int(bool(chains))
         self.launches = self.lift_launches + self.small_launches
         self._small_on = {}
 
-    def small_tables_on(self, device):
-        """(small_table, small_chains) as int64 tensors on `device`
-        (uploaded once)."""
+    def small_table_on(self, device):
+        """``small_table`` as ``dwt_small`` reads it, an int64 tensor on
+        `device` (uploaded once): ``small_maxchain`` rows a plane, plane
+        b's levels from row b * small_maxchain, zero rows after them."""
         t = self._small_on.get(device)
         if t is None:
-            t = (torch.from_numpy(self.small_table).to(device),
-                 torch.from_numpy(self.small_chains).to(device))
+            nplanes = len(self.small_chains) - 1
+            pad = np.zeros((nplanes, self.small_maxchain, _SMALL_INTS),
+                           np.int64)
+            for b in range(nplanes):
+                lo, hi = self.small_chains[b:b + 2]
+                pad[b, :hi - lo] = self.small_table[lo:hi]
+            t = torch.from_numpy(pad.reshape(-1, _SMALL_INTS)).to(device)
             self._small_on[device] = t
         return t
 
@@ -227,16 +278,18 @@ def _launch(plan: LiftPlan, base: int, out):
     dwt_lift.launches += n.value
 
 
-def dwt_small(table, chains, base: int, out, transform: int):
-    """Launch ``dwt_small`` once on the job rows of `table` (an int64
-    device tensor, a plan's ``small_tables_on``) grouped by `chains`:
-    inputs at element offsets from the address `base`, outputs into
-    `out`. ``dwt_lift_program`` is the entry point that checks a plan's
-    buffer; this is its launch, which ``chip_smoke.py`` times alone."""
+def dwt_small(plan: LiftPlan, base: int, out):
+    """Launch ``dwt_small`` once on `plan`'s small jobs (its
+    ``small_table_on`` the device): inputs at element offsets from the
+    address `base`, outputs into `out`. ``dwt_lift_program`` is the entry
+    point that checks a plan's buffer; this is its launch, which
+    ``chip_smoke.py`` times alone."""
+    table = plan.small_table_on(out.device)
     with torch.cuda.device(out.device):
         err = build.load().lib.dwt_small_launch(
-            table.data_ptr(), chains.data_ptr(), chains.numel() - 1, base,
-            out.data_ptr(), _MODE[transform],
+            table.data_ptr(), len(plan.small_chains) - 1,
+            plan.small_maxchain, plan.small_smem, base, out.data_ptr(),
+            _MODE[plan.transform],
             torch.cuda.current_stream(out.device).cuda_stream)
     build.check(err, "dwt_small_launch")
     dwt_small.launches += 1
@@ -270,7 +323,8 @@ def dwt_lift_program_ref(plan: LiftPlan, bands):
     _check_bands(plan, bands)
     scratch = torch.empty(plan.total, dtype=bands.dtype, device=bands.device)
     for (_lev, ll_out, ll, hl, lh, hh, o, w, h, mh, mv, pre, lls, bs) in \
-            plan.small_table.tolist() + plan.table.tolist():
+            [r[:_JOB_INTS] for r in plan.small_table.tolist()] \
+            + plan.table.tolist():
         nE, nEv = (w + 1 - mh) // 2, (h + 1 - mv) // 2
         nO, nOv = w - nE, h - nEv
         ref = dwt_torch.dwt_level_small_ref if is_small(w, h) \
@@ -295,8 +349,7 @@ def dwt_lift_program(plan: LiftPlan, bands):
         return dwt_lift_program_ref(plan, bands)
     scratch = torch.empty(plan.total, dtype=bands.dtype, device=bands.device)
     if len(plan.small_table):
-        table, chains = plan.small_tables_on(bands.device)
-        dwt_small(table, chains, bands.data_ptr(), scratch, plan.transform)
+        dwt_small(plan, bands.data_ptr(), scratch)
     if len(plan.table):
         _launch(plan, bands.data_ptr(), scratch)
     return scratch

@@ -444,21 +444,35 @@ def decode_cleanup_scan_dims(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
                           ms_class)
 
 
-def _bucket_dims(msw, qw: int, qh: int, nreal: int):
+def _bucket_dims(msw, qw: int, qh: int, nreal: int, cache=None):
     """(qws, qhs) of a v2 bucket: its first `nreal` lanes decode the whole
-    (qw, qh) quad grid, the pad lanes after them are inert."""
-    real = torch.arange(msw.shape[0], device=msw.device) < nreal
-    return ((real * qw).to(torch.int32), (real * qh).to(torch.int32))
+    (qw, qh) quad grid, the pad lanes after them are inert. Both are views
+    of one (2, 2n) int32 tensor on `msw`'s device, n times (qw, qh) then
+    zeros, from column n - nreal; `cache` (a dict) keeps that tensor by
+    (device, n, qw, qh), so that a later call takes no device operation,
+    whatever its nreal."""
+    n, dev = msw.shape[0], msw.device
+    key = (dev, n, qw, qh)
+    win = None if cache is None else cache.get(key)
+    if win is None:
+        a = np.zeros((2, 2 * n), np.int32)
+        a[:, :n] = np.array([[qw], [qh]], np.int32)
+        win = torch.from_numpy(a).to(dev)
+        if cache is not None:
+            cache[key] = win
+    k = n - min(max(nreal, 0), n)
+    return win[0, k:k + n], win[1, k:k + n]
 
 
 def decode_cleanup_scan_sig(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim,
-                            qw: int, qh: int, ms_class: int, nreal: int):
+                            qw: int, qh: int, ms_class: int, nreal: int,
+                            dims_cache=None):
     """(mu, sig, ok) of a v2 bucket, every real lane a (2qh, 2qw) codeblock
     (counterpart of ``ffmpeg_ht_tpu.ops.ht_scan.decode_cleanup_scan_sig``).
     The JAX function decodes its pad lanes (pLSB 2, maxbp 32) and masks
     their ok flag afterwards; here they are inert (qws = qhs = 0: nothing
     read, zeros out, ok true), so `ms_class` need bound the real lanes
-    only."""
-    qws, qhs = _bucket_dims(msw, qw, qh, nreal)
+    only. `dims_cache` keeps the lanes' (qws, qhs) (``_bucket_dims``)."""
+    qws, qhs = _bucket_dims(msw, qw, qh, nreal, dims_cache)
     return decode_cleanup_scan_dims(msw, melw, vlcw, pLSB, maxbp, ms_lim,
                                     mel_lim, qws, qhs, qw, qh, ms_class)

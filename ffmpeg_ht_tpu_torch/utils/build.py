@@ -74,15 +74,16 @@ _SIGNATURES = {
                         _I, _I, _I, _I,                  # mode, tile rows,
                                                          # cols, halo pairs
                         _P, _P],                         # stream, launches
-    "dwt_small_launch": [_P, _P, _I,                     # table, chains, n
+    "dwt_small_launch": [_P, _I, _I, _I,                 # table, planes,
+                                                         # maxchain, smem
                          _P, _P, _I, _P],                # in, out, mode,
                                                          # stream
     "bucket_scatter_launch": [_P, _I,                    # buckets, n
                               _P, _P, _I64,              # pf_idx, pf_val, n
                               _I64, _I, _I,              # total, mode,
                                                          # no_istep
-                              _P, _P, _P],               # out, stream,
-                                                         # launches
+                              _P, _P, _P, _P],           # out, bits,
+                                                         # stream, launches
     "plane_writeframe_launch": [_P, _I, _P, _I,          # table, n, base,
                                                          # float
                                 _I, _P, _I,              # cbps, out, kind

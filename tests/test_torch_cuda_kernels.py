@@ -41,11 +41,15 @@ launches what ``kernel_launches()`` says; ``dwt_lift`` takes strided jobs
 (bands that are corners of larger planes); the ``dwt_small`` kernel
 (one ``dwt_lift_program`` call over planes of one small level) matches
 ``dwt_level_small_ref`` bit for bit on every level with a side of 1-7
-against 1-67 and on 70000-sample lines, at every parity; a flat
-buffer's quadrant pyramids through one ``dwt_lift_program`` call (small
-and strided jobs) match ``dwt_lift_program_ref``; ``bucket_scatter``
-matches ``bucket_scatter_ref`` (pad lanes, cropped codeblocks, prefill
-entries under lane samples) and ``plane_writeframe`` matches
+against 1-67 (staged in shared memory) and on 70000-sample lines (in
+device memory), at every parity; a flat buffer's quadrant pyramids
+through one ``dwt_lift_program`` call (small and strided jobs, chains of
+small levels that leave shared memory part way) match
+``dwt_lift_program_ref``; ``bucket_scatter`` matches
+``bucket_scatter_ref`` (pad lanes, cropped codeblocks, prefill entries
+under lane samples, a buffer most of which no lane covers, 16-byte
+aligned and odd destinations and strides, more buckets than two
+launches take) and ``plane_writeframe`` matches
 ``plane_writeframe_ref`` (float ties, both output widths, more planes
 than a launch takes); a band-direct V3Program, one with levels under
 8x8 and a BucketProgram on the card give the CPU decoder's bytes with
@@ -845,7 +849,7 @@ def test_dwt_small_kernel_edge_set(cuda, tname, mh, mv):
     transform = TRANSFORMS[tname]
     sizes = [(a, b) for a in range(1, 8) for b in range(1, 68)]
     sizes += [(b, a) for a, b in sizes if b >= 8]
-    sizes += [(5, 70000), (70000, 3), (1, 70000), (70000, 1)]
+    sizes += [(5, 70000), (70000, 5), (70000, 3), (1, 70000), (70000, 1)]
     shapes, planes = [], []
     for w, h in sizes:
         nE, nEv = (w + 1 - mh) // 2, (h + 1 - mv) // 2
@@ -856,6 +860,9 @@ def test_dwt_small_kernel_edge_set(cuda, tname, mh, mv):
     offsets = np.cumsum([0] + [r * c for r, c in shapes])[:-1].tolist()
     plan = dwt_cuda.LiftPlan(offsets, shapes, planes, transform)
     assert len(plan.small_table) == len(sizes) and not len(plan.table)
+    # the five long lines in device memory, the others staged in shared
+    # memory
+    assert plan.small_device == 5 and plan.small_shared == len(sizes) - 5
     dt = torch.float32 if transform == DWT97 else torch.int32
     rng = np.random.default_rng(mh * 2 + mv + 20 * len(tname))
     buf = torch.from_numpy(rng.integers(-4000, 4000, plan.band_total)) \
@@ -881,6 +888,11 @@ FLAT_PLANES = {
             ((1, 5), ((5, 10), (9, 10)), 3),
             ((13, 1), ((7, 8), (2, 15)), 2),
             ((9, 9), ((0, 9), (0, 9)), 0)],
+    # chains of small levels whose later levels do not fit dwt_small's
+    # shared memory: a staged prefix, the rest in device memory
+    "mixed": [((3000, 6), ((1, 7), (3, 3003)), 2),
+              ((5, 9000), ((0, 9000), (1, 6)), 3),
+              ((7, 7), ((1, 8), (1, 8)), 3)],
 }
 
 
@@ -917,6 +929,7 @@ def test_flat_dwt_program_matches_ref(cuda, geom, tname):
             dwt_cuda.dwt_small.launches - before[1]) \
         == (plan.lift_launches, plan.small_launches)
     assert plan.small_launches == 1
+    assert bool(plan.small_device) == (geom == "mixed")
     assert _same_bits(got, dwt_cuda.dwt_lift_program_ref(plan, flat.cpu())
                       .to(cuda))
 
@@ -1002,6 +1015,82 @@ def test_bucket_scatter_kernel_matches_ref(cuda, tname):
         assert coef_cuda.bucket_scatter.launches == before + 1
         assert _same_bits(got, coef_cuda.bucket_scatter_ref(
             *args, transform, no_istep))
+
+
+def _scatter_layout(rng, transform, cuda, layout):
+    """Buckets for bucket_scatter at disjoint places of a flat buffer,
+    most of which no lane covers (zeros): "aligned" destinations and
+    strides (16-byte stores), "unaligned" ones (4-byte stores), or
+    "many" buckets (more than two launches), with a prefill of which
+    some entries meet lane samples. (args of bucket_scatter, the bucket
+    launches expected, the prefill entries under a lane)."""
+    total = 200000
+    used = np.zeros(total, bool)
+    dt = torch.float32 if transform == DWT97 else torch.int32
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    specs = [(64, 64, 64, 64, 6), (64, 64, 61, 37, 5), (32, 32, 32, 32, 9),
+             (16, 8, 13, 8, 11), (8, 4, 7, 3, 13), (4, 4, 4, 4, 7),
+             (256, 16, 256, 16, 2), (2, 2, 1, 1, 5)]
+    if layout == "many":
+        specs = [(8, 8, 5 + i % 4, 8 - i % 5, 4)
+                 for i in range(2 * coef_cuda.MAX_BUCKETS + 5)]
+    mus, dims, lanes = [], [], []
+    for bw, bh, w, h, n in specs:
+        dest, stride = np.full(n, -1, np.int32), np.zeros(n, np.int32)
+        for i in range(n):
+            if i % 4 == 3:
+                continue                          # a pad lane
+            for _try in range(200):
+                st = int(rng.integers(w, w + 80))
+                d = int(rng.integers(0, total - (h - 1) * st - w))
+                if layout == "aligned":
+                    st, d = (st + 3) & ~3, d & ~3
+                elif layout == "unaligned":
+                    st, d = st | 1, d | 1
+                idx = (d + np.arange(h)[:, None] * st
+                       + np.arange(w)[None]).ravel()
+                if idx.max() < total and not used[idx].any():
+                    used[idx] = True
+                    dest[i], stride[i] = d, st
+                    break
+        mus.append(t(rng.integers(-2 ** 31, 2 ** 31, (n, bh, bw),
+                                  dtype=np.int64).astype(np.int32)))
+        dims.append((w, h))
+        lanes.append(dict(
+            dest=t(dest), stride=t(stride),
+            magb=t(rng.integers(0, 40, n).astype(np.int32)),
+            istep=t(np.where(rng.random(n) < 0.3, 32768,
+                             rng.integers(0, 70000, n)).astype(np.int32)),
+            scale97=t(rng.integers(-70000, 70000, n).astype(np.int32)),
+            fscale=t((rng.random(n) * 1e-6).astype(np.float32))))
+    idx = np.unique(np.concatenate([rng.choice(total, 5000, replace=False),
+                                    [total]]))
+    pf_idx = t(idx.astype(np.int32))
+    pf_val = t(rng.integers(-9999, 9999, len(idx))).to(dt)
+    return (mus, dims, lanes, pf_idx, pf_val, total), \
+        coef_cuda.bucket_scatter_launches(len(specs)), \
+        int(used[idx[idx < total]].sum())
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned", "many"])
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_bucket_scatter_kernel_layouts(cuda, tname, layout):
+    """bucket_scatter against bucket_scatter_ref by bits on a buffer most
+    of which no lane covers: 16-byte aligned destinations and strides,
+    odd ones, and more buckets than two launches take (the counter adds
+    one a launch); prefill entries under lane samples lose to the lanes,
+    the others are written, and the rest reads 0."""
+    transform = TRANSFORMS[tname]
+    args, launches, met = _scatter_layout(
+        np.random.default_rng(80 + len(tname) + len(layout)), transform,
+        cuda, layout)
+    assert met > 0 and launches == (3 if layout == "many" else 1)
+    before = coef_cuda.bucket_scatter.launches
+    got = coef_cuda.bucket_scatter(*args, transform, False)
+    torch.cuda.synchronize()
+    assert coef_cuda.bucket_scatter.launches == before + launches
+    assert _same_bits(got, coef_cuda.bucket_scatter_ref(*args, transform,
+                                                        False))
 
 
 @pytest.mark.parametrize("out_dtype,cbps", [(torch.uint8, 8),

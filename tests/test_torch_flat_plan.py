@@ -16,6 +16,8 @@ through ``Decoder(device="cpu")`` on the v2 path to the host oracle's
 bytes. One small JAX geometry is compiled, no JAX stream decode.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -298,3 +300,453 @@ def test_v3_program_with_small_levels_equals_the_composed_route(tname):
             port_asm._compose_plane(coef, plane, 0),
             [list(border[0]), list(border[1])], ndec, t)
         assert torch.equal(_bits(out), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# csrc/bucket_scatter.cu's schedule, emulated: the lane pass's warp tasks
+# (kUnroll row groups of one lane, 4 samples a thread, kWarps warps a block,
+# MAX_BUCKETS buckets a launch), the coverage bitmap it writes, then the
+# zeros where no lane wrote, then the prefill where no lane wrote
+# ---------------------------------------------------------------------------
+
+_UNROLL = 4                  # kUnroll: row groups a warp task
+_GARBAGE = 0x5A5A5A5A        # what an unwritten sample of the buffer holds
+
+
+def _ceil_log2(n):
+    return (n - 1).bit_length() if n > 1 else 0
+
+
+def _scatter_tasks(n, h, w):
+    """A bucket's warp tasks as the kernel maps them: (lane, y, x) of every
+    4-sample chunk a thread loads, and (lane, y, first word, thread's
+    first word, word step) of every row whose coverage words it writes."""
+    lg = min(_ceil_log2((w + 3) >> 2), 5)
+    rpw = 32 >> lg
+    tpl = -(-h // (rpw * _UNROLL)) if h else 0
+    task, thread, m, u = np.meshgrid(np.arange(n * tpl), np.arange(32),
+                                     np.arange(-(-((w + 3) >> 2) // 32) or 1),
+                                     np.arange(_UNROLL), indexing="ij")
+    lane = task // max(tpl, 1)
+    c0 = thread & ((1 << lg) - 1)
+    y = (task - lane * tpl) * rpw * _UNROLL + (thread >> lg) + u * rpw
+    c = c0 + 32 * m
+    return lane, y, 4 * c, c < (w + 3) >> 2, c0, 1 << lg, m == 0
+
+
+def _emulate_scatter(mus, dims, lanes, pf_idx, pf_val, total, transform,
+                     no_istep):
+    """What bucket_scatter's three passes write, from numpy arrays: the
+    flat buffer (int64 bit patterns; an unwritten sample keeps _GARBAGE).
+    Raises if a sample is written twice by the lanes, or if the bitmap
+    marks other samples than the lanes wrote."""
+    out = np.full(total + 1, _GARBAGE, np.int64)
+    bits = np.zeros((total + 32) // 32, np.int64)
+    hits = np.zeros(total + 1, np.int64)
+    for b0 in range(0, len(mus), coef_cuda.MAX_BUCKETS):   # a launch
+        for mu, (w, h), a in list(zip(mus, dims, lanes))[
+                b0:b0 + coef_cuda.MAX_BUCKETS]:
+            n = mu.shape[0]
+            if not n:
+                continue
+            coef = coef_cuda.dequant(*(torch.from_numpy(np.asarray(v)) for v
+                                       in (mu, a["magb"], a["istep"],
+                                           a["scale97"], a["fscale"])),
+                                     transform, no_istep)
+            coef = _bits(coef).numpy().astype(np.int64)
+            lane, y, x, cok, c0, step, first = _scatter_tasks(n, h, w)
+            dest = np.asarray(a["dest"]).astype(np.int64)[lane]
+            stride = np.asarray(a["stride"]).astype(np.int64)[lane]
+            row = (dest >= 0) & (y < h)
+            for k in range(4):
+                ok = row & cok & (x + k < w)
+                at = dest + y * stride + x + k
+                ok &= at < total
+                at, v = at[ok], coef[lane[ok], y[ok], x[ok] + k]
+                np.add.at(hits, at, 1)
+                out[at] = v
+            # the rows' coverage words, word j of a row by its thread j
+            # (mod the row's threads)
+            row &= first
+            a0 = (dest + y * stride)[row]
+            a1 = np.minimum(a0 + w, total)
+            c0r, stepr = c0[row], np.broadcast_to(step, row.shape)[row]
+            for j in range(0, (w + 31) // 32 + 2):
+                wd = (a0 >> 5) + c0r + j * stepr
+                s = wd << 5
+                ok = (a0 < a1) & (c0r + j * stepr <= ((a1 - 1) >> 5)
+                                  - (a0 >> 5))
+                lo = np.clip(a0 - s, 0, 32)[ok]
+                hi = np.clip(a1 - s, 0, 32)[ok]
+                mask = ((1 << hi) - 1) & ~((1 << lo) - 1)
+                np.bitwise_or.at(bits, wd[ok], mask)
+    assert hits.max(initial=0) <= 1, "a sample written twice"
+    covered = (bits[np.arange(total + 1) >> 5] >> (np.arange(total + 1)
+                                                   & 31)) & 1
+    assert np.array_equal(covered == 1, hits == 1), "bitmap != lane writes"
+    out[covered == 0] = 0                                 # the zero pass
+    idx = np.asarray(pf_idx).astype(np.int64)
+    val = _bits(torch.from_numpy(np.asarray(pf_val))).numpy()
+    live = (idx >= 0) & (idx < total)
+    live[live] &= covered[idx[live]] == 0                 # the prefill
+    out[idx[live]] = val[live]
+    return out
+
+
+@pytest.mark.parametrize("case", ["program", "uncovered"])
+def test_scatter_schedule_equals_ref_and_jax_compiled_assembly(case):
+    """bucket_scatter's schedule (emulated above) on STREAM's v2 program,
+    with random mu words and a prefill entry under a lane sample; in the
+    "uncovered" case every third lane is dropped (its codeblock then has
+    no lane: zeros, and the prefill entries put into it) and prefill
+    entries land in those codeblocks: equal by bits to
+    bucket_scatter_ref, and through the plan and the pack to the JAX
+    ``_compiled_assembly``, with every sample written."""
+    geom, shapes, bargs, pf_idx, pf_val, mus = _bucket_inputs()
+    if case == "uncovered":
+        rng = np.random.default_rng(17)
+        extra = []
+        for a in bargs:
+            dest = a["dest"].copy()
+            drop = (np.arange(len(dest)) % 3 == 1) & (dest >= 0)
+            extra += [d + 1 for d in dest[drop]]
+            dest[drop] = -1
+            a["dest"] = dest
+        assert extra
+        pf_idx = np.concatenate([pf_idx, np.array(extra, np.int32)])
+        pf_val = np.concatenate([pf_val, rng.integers(
+            -500, 500, len(extra)).astype(pf_val.dtype)])
+    prog = port_asm.BucketProgram(shapes, geom.key())
+    got = _emulate_scatter(mus, prog.dims, bargs, pf_idx, pf_val,
+                           prog.total, prog.transform, False)
+    assert (got != _GARBAGE).all()
+    tb = [{k: torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray)
+           else v for k, v in a.items()} for a in bargs]
+    flat = coef_cuda.bucket_scatter_ref(
+        [torch.from_numpy(m) for m in mus], prog.dims, tb,
+        torch.from_numpy(pf_idx), torch.from_numpy(pf_val), prog.total,
+        prog.transform, False)
+    assert np.array_equal(got, _bits(flat).numpy().astype(np.int64))
+    scratch = dwt_cuda.dwt_lift_program_ref(prog.lift, flat)
+    outs = [flat[off:off + ph * pw].view(ph, pw) if last is None
+            else prog.lift.view(scratch, last)
+            for (off, ph, pw), last in zip(prog.planes, prog.lift.last)]
+    packed = prog.pack(outs, torch.ones(1, dtype=torch.bool)).numpy()
+    fn = jax_decoder._compiled_assembly(tuple(map(tuple, shapes)),
+                                        geom.key())
+    keys = ("fscale", "scale97", "magb", "istep", "dest", "stride")
+    jargs = [{**{k: jnp.asarray(a[k]) for k in keys}, "nreal": a["nreal"]}
+             for a in bargs]
+    want = fn(jnp.asarray(pf_idx), jnp.asarray(pf_val),
+              [jnp.asarray(m) for m in mus],
+              [jnp.ones(m.shape[0], bool) for m in mus], jargs)
+    assert np.array_equal(packed.view(np.uint16),
+                          np.asarray(want).astype(np.uint16))
+
+
+def _random_buckets(rng, transform, nbuckets=None):
+    """Random buckets at disjoint places of a flat buffer (pad lanes, a
+    bucket of no lanes, codeblocks smaller than their rasters, rows of 1
+    to 200 samples, destinations and strides with and without 16-byte
+    alignment), and a prefill that meets lane samples and free ones;
+    with `nbuckets`, that many small buckets (more than one launch)."""
+    total = 30000
+    used = np.zeros(total, bool)
+    specs = [(8, 8, 8, 8, 30), (8, 4, 5, 3, 23), (64, 64, 64, 61, 2),
+             (4, 4, 4, 4, 0), (32, 16, 31, 16, 7), (6, 6, 5, 6, 9),
+             (2, 2, 1, 2, 7), (256, 4, 200, 3, 2)]
+    if nbuckets:
+        specs = [(4, 4, 3 + i % 2, 4 - i % 3, 3) for i in range(nbuckets)]
+    mus, dims, lanes = [], [], []
+    for bw, bh, w, h, n in specs:
+        dest, stride = np.full(n, -1, np.int32), np.zeros(n, np.int32)
+        for i in range(n):
+            if i % 5 == 4:
+                continue                          # a pad lane
+            for _try in range(100):
+                st = int(rng.integers(w, w + 40))
+                st = (st + 3) & ~3 if rng.random() < 0.5 else st
+                d = int(rng.integers(0, total - (h - 1) * st - w))
+                d = d & ~3 if rng.random() < 0.5 else d
+                idx = (d + np.arange(h)[:, None] * st
+                       + np.arange(w)[None]).ravel()
+                if not used[idx].any():
+                    used[idx] = True
+                    dest[i], stride[i] = d, st
+                    break
+        mus.append(rng.integers(-2 ** 31, 2 ** 31, (n, bh, bw),
+                                dtype=np.int64).astype(np.int32))
+        dims.append((w, h))
+        lanes.append(dict(
+            dest=dest, stride=stride,
+            magb=rng.integers(0, 40, n).astype(np.int32),
+            istep=np.where(rng.random(n) < 0.3, 32768,
+                           rng.integers(0, 70000, n)).astype(np.int32),
+            scale97=rng.integers(-70000, 70000, n).astype(np.int32),
+            fscale=(rng.random(n) * 1e-6).astype(np.float32)))
+    idx = np.unique(np.concatenate([rng.choice(total, 1500, replace=False),
+                                    [total]])).astype(np.int32)
+    val = rng.integers(-9999, 9999, len(idx)).astype(
+        np.float32 if transform == DWT97 else np.int32)
+    return mus, dims, lanes, idx, val, total, used
+
+
+@pytest.mark.parametrize("nbuckets", [None, 2 * coef_cuda.MAX_BUCKETS + 5])
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_scatter_schedule_on_random_buckets(tname, nbuckets):
+    """bucket_scatter's schedule (emulated above) on random buckets in
+    all three transforms, with and without the step, and on more buckets
+    than one launch takes: every lane sample written once, the bitmap
+    exactly the lanes' samples, the buffer equal by bits to
+    bucket_scatter_ref (pad lanes, rows outside the codeblocks and the
+    prefill's pad written nowhere; out[total] 0)."""
+    t = TRANSFORMS[tname]
+    mus, dims, lanes, idx, val, total, used = _random_buckets(
+        np.random.default_rng(60 + len(tname) + (nbuckets or 0)), t,
+        nbuckets)
+    assert used[idx[idx < total]].any() and (~used[idx[idx < total]]).any()
+    for no_istep in (False, True):
+        got = _emulate_scatter(mus, dims, lanes, idx, val, total, t,
+                               no_istep)
+        want = coef_cuda.bucket_scatter_ref(
+            [torch.from_numpy(m) for m in mus], dims,
+            [{k: torch.from_numpy(v) for k, v in a.items()} for a in lanes],
+            torch.from_numpy(idx), torch.from_numpy(val), total, t,
+            no_istep)
+        assert got[total] == 0
+        assert np.array_equal(got, _bits(want).numpy().astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# csrc/dwt_small.cu's schedule, emulated: a block a plane over the plan's
+# padded rows, the staged levels' bands gathered into shared memory in one
+# wave, each lifting step one parity of every line at once (neighbours
+# mirrored at a line's two ends only), each staged level's output written
+# once and into the next level's LL places; the other levels in place in
+# the output
+# ---------------------------------------------------------------------------
+
+
+def _wrap32(v):
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _q16(coef, s):
+    return _wrap32((coef * s + (1 << 15)) >> 16)
+
+
+def _step(t, st, x, a, b):
+    """One lifting step of csrc/dwt_common.cuh on tensors (int64 holding
+    int32 values, or float32)."""
+    if t == DWT97:
+        c = (dwt_torch._F_DELTA, dwt_torch._F_GAMMA, dwt_torch._F_BETA,
+             dwt_torch._F_ALPHA)[st]
+        m = c * (a + b)
+        return x - m if st < 2 else x + m
+    if t == DWT53:
+        return _wrap32(x - (_wrap32(a + b + 2) >> 2)) if st == 0 \
+            else _wrap32(x + (_wrap32(a + b) >> 1))
+    s = a + b
+    if st == 3:
+        return _wrap32(x + _wrap32(_wrap32(s) + _q16(38413, s)))
+    d = _q16((29066, 57862, 3472)[st], s)
+    return _wrap32(x - d if st < 2 else x + d)
+
+
+def _single(t, x, odd):
+    if t == DWT97:
+        return x * (dwt_torch._F_K_HALF if odd else dwt_torch._F_X)
+    if t == DWT53:
+        return x >> 1 if odd else x
+    return _wrap32((x * 80621 + (1 << 16)) >> 17) if odd \
+        else _wrap32((x * 53274 + (1 << 15)) >> 16)
+
+
+def _lift_level(P, t, w, h, mh, mv):
+    """A level's row steps, then its column steps, on P (h x w) in place:
+    each step every sample of one parity at once, as the kernel's threads
+    (positions from shifts and masks) compute it."""
+    steps = 2 if t == DWT53 else 4
+    if w == 1:
+        P[:, 0] = _single(t, P[:, 0], mh & 1)
+    else:
+        lg = _ceil_log2((w + 1) >> 1)
+        for st in range(steps):
+            i = torch.arange(h << lg)
+            x, y = 2 * (i & ((1 << lg) - 1)) + ((st ^ mh) & 1), i >> lg
+            y, x = y[x < w], x[x < w]
+            a = P[y, torch.where(x == 0, 1, x - 1)]
+            b = P[y, torch.where(x == w - 1, w - 2, x + 1)]
+            P[y, x] = _step(t, st, P[y, x], a, b)
+    if h == 1:
+        P[0] = _single(t, P[0], mv & 1)
+    else:
+        lg = _ceil_log2(w)
+        for st in range(steps):
+            i = torch.arange(((h + 1) >> 1) << lg)
+            x, y = i & ((1 << lg) - 1), 2 * (i >> lg) + ((st ^ mv) & 1)
+            keep = (x < w) & (y < h)
+            x, y = x[keep], y[keep]
+            a = P[torch.where(y == 0, 1, y - 1), x]
+            b = P[torch.where(y == h - 1, h - 2, y + 1), x]
+            P[y, x] = _step(t, st, P[y, x], a, b)
+
+
+def _gather(d, src_in, src_out, P, with_ll):
+    """A level's bands into P (h x w) at their interleaved places."""
+    w, h, mh, mv = d[7:11]
+    nE, nO = (w + 1 - mh) >> 1, w - ((w + 1 - mh) >> 1)
+    lg = _ceil_log2(w)
+    i = torch.arange(h << lg)
+    x, y = i & ((1 << lg) - 1), i >> lg
+    y, x = y[x < w], x[x < w]
+    p, q = y + mv, x + mh
+    lr, lc = (p & 1) == 0, (q & 1) == 0
+    r = (p >> 1) - torch.where(lr, mv, 0)
+    c = (q >> 1) - torch.where(lc, mh, 0)
+    lls, bs = d[12] or nE, d[13]
+    ll = src_out if d[1] else src_in
+    for sel, buf, off, st in ((lr & lc, ll, d[2], lls),
+                              (lr & ~lc, src_in, d[3], bs or nO),
+                              (~lr & lc, src_in, d[4], bs or nE),
+                              (~lr & ~lc, src_in, d[5], bs or nO)):
+        if buf is ll and not with_ll:
+            continue
+        P[y[sel], x[sel]] = buf[off + r[sel] * st + c[sel]]
+
+
+def _emulate_small(plan, bands):
+    """What dwt_small writes into a fresh scratch buffer for `plan` (its
+    padded device table, read on the CPU) from the 1-D `bands`; samples
+    it does not write keep _GARBAGE. int64 bit patterns for the integer
+    transforms, float32 for the float 9/7."""
+    t = plan.transform
+    fl = t == DWT97
+    src = bands.clone() if fl else bands.to(torch.int64)
+    out = torch.full((plan.total,), float("nan") if fl else _GARBAGE,
+                     dtype=torch.float32 if fl else torch.int64)
+    rows = plan.small_table_on(torch.device("cpu")).tolist()
+    m = plan.small_maxchain
+    for b in range(len(plan.small_chains) - 1):
+        chain = [r for r in rows[b * m:(b + 1) * m] if r[7] > 0]
+        S = {}                      # the staged levels, by offset
+        for k, d in enumerate(chain):
+            if d[14] < 0:
+                break
+            S[d[14]] = torch.full((d[8], d[7]), float("nan") if fl
+                                  else _GARBAGE, dtype=out.dtype)
+            _gather(d, src, out, S[d[14]], k == 0)
+        for k, d in enumerate(chain):
+            w, h, o = d[7], d[8], d[6]
+            if d[14] < 0:
+                P = out[o:o + w * h].view(h, w)
+                _gather(d, src, out, P, True)
+                _lift_level(P, t, w, h, d[9], d[10])
+                if d[11]:
+                    P.copy_(_wrap32((P + 128) >> 8))
+                continue
+            P = S[d[14]]
+            _lift_level(P, t, w, h, d[9], d[10])
+            out[o:o + w * h] = (_wrap32((P + 128) >> 8) if d[11]
+                                else P).reshape(-1)
+            if k + 1 < len(chain) and chain[k + 1][14] >= 0:
+                nx = chain[k + 1]            # its LL: rows mv', cols mh'
+                S[nx[14]][nx[10]:nx[10] + 2 * h:2,
+                          nx[9]:nx[9] + 2 * w:2] = P
+    return out
+
+
+def _small_plan(sizes, mh, mv, t):
+    """A LiftPlan of one-level planes of (w, h) `sizes` at parities
+    (mh, mv), bands back to back."""
+    shapes, planes = [], []
+    for w, h in sizes:
+        nE, nEv = (w + 1 - mh) // 2, (h + 1 - mv) // 2
+        b = len(shapes)
+        shapes += [(nEv, nE), (nEv, w - nE), (h - nEv, nE),
+                   (h - nEv, w - nE)]
+        planes.append((b, [(b + 1, b + 2, b + 3)], [(mh, mv)]))
+    offsets = np.cumsum([0] + [r * c for r, c in shapes])[:-1].tolist()
+    return dwt_cuda.LiftPlan(offsets, shapes, planes, t)
+
+
+def _small_outputs(plan, buf):
+    return [buf[o:o + w * h] for o, w, h in
+            plan.small_table[:, 6:9].tolist()]
+
+
+@pytest.mark.parametrize("mh,mv", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_small_schedule_equals_small_level_ref(tname, mh, mv):
+    """dwt_small's parity-parallel schedule (emulated above) on every
+    level with w < 8 or h < 8 up to 9 on the other side, at origin
+    parities (mh, mv), a plane of one level each with the integer 9/7's
+    final shift: equal by bits to dwt_level_small_ref job by job
+    (``dwt_lift_program_ref``), every output sample written."""
+    t = TRANSFORMS[tname]
+    sizes = [(a, b) for a in range(1, 8) for b in range(1, 10)]
+    sizes += [(b, a) for a, b in sizes if b >= 8]
+    plan = _small_plan(sizes, mh, mv, t)
+    assert plan.small_shared == len(sizes) and plan.small_device == 0
+    rng = np.random.default_rng(70 + 2 * mh + mv + len(tname))
+    bands = torch.from_numpy(rng.integers(-4000, 4000, plan.band_total)) \
+        .to(_dtype(t))
+    got = _emulate_small(plan, bands)
+    want = dwt_cuda.dwt_lift_program_ref(plan, bands)
+    for g, w_ in zip(_small_outputs(plan, got), _small_outputs(plan, want)):
+        if t == DWT97:
+            assert torch.equal(_bits(g), _bits(w_))
+        else:
+            assert torch.equal(g, w_.to(torch.int64))
+
+
+# flat planes ((h, w), border, levels) whose small levels chain: the 8K
+# frame's bottom tiles (32x7 and 16x7), odd origins with two small levels,
+# and chains whose later levels do not fit dwt_small's shared memory
+SMALL_CHAINS = [((224, 1024), ((0, 1024), (4096, 4320)), 6),
+                ((224, 512), ((7168, 7680), (4096, 4320)), 6),
+                ((37, 45), ((3, 48), (1, 38)), 3),
+                ((6, 70), ((1, 71), (0, 6)), 2),
+                ((1, 5), ((5, 10), (9, 10)), 3),
+                ((3000, 6), ((1, 7), (3, 3003)), 2),
+                ((5, 9000), ((0, 9000), (1, 6)), 3)]
+
+
+@pytest.mark.parametrize("tname", list(TRANSFORMS))
+def test_small_schedule_chains_and_storage(tname):
+    """dwt_small's schedule (emulated above) on planes whose small levels
+    chain, some of them too large for shared memory: the plan stages a
+    prefix of each plane's levels at consecutive offsets within
+    SMALL_SHARED_BYTES, the rest in device memory, and the outputs equal
+    the plain small jobs by bits."""
+    t = TRANSFORMS[tname]
+    planes, off = [], 0
+    for (h, w), _b, _n in SMALL_CHAINS:
+        planes.append((off, h, w))
+        off += h * w
+    plan = port_asm.flat_lift_plan(planes, [b for _s, b, _n in SMALL_CHAINS],
+                                   [n for _s, _b, n in SMALL_CHAINS], t,
+                                   off + 1)
+    assert plan.small_shared and plan.small_device
+    rows = plan.small_table.tolist()
+    for lo, hi in zip(plan.small_chains[:-1], plan.small_chains[1:]):
+        at, staged = 0, True
+        for r in rows[lo:hi]:
+            if r[14] < 0:
+                staged = False
+                continue
+            assert staged and r[14] == at
+            at += r[7] * r[8]
+        assert 4 * at <= min(plan.small_smem, dwt_cuda.SMALL_SHARED_BYTES)
+    alone = copy.copy(plan)
+    alone.table = plan.table[:0]          # the small jobs only
+    rng = np.random.default_rng(90 + len(tname))
+    bands = torch.from_numpy(rng.integers(-4000, 4000, plan.band_total)) \
+        .to(_dtype(t))
+    got = _emulate_small(plan, bands)
+    want = dwt_cuda.dwt_lift_program_ref(alone, bands)
+    for g, w_ in zip(_small_outputs(plan, got), _small_outputs(plan, want)):
+        if t == DWT97:
+            assert torch.equal(_bits(g), _bits(w_))
+        else:
+            assert torch.equal(g, w_.to(torch.int64))

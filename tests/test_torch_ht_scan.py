@@ -176,3 +176,25 @@ def test_cpu_tensors_never_launch_the_kernel():
     with pytest.raises(ValueError):
         port.decode_cleanup_scan_dims(
             *(_tt(arrays[k]).to("meta") for k in KEYS), 32, 32, msc)
+
+
+def test_bucket_dims_cached_window():
+    """A v2 bucket's (qws, qhs): (qw, qh) on its first nreal lanes, 0 on
+    the pads, for every nreal of a bucket, as the arange form gives them;
+    with a cache both are views of one tensor a (device, lanes, qw, qh),
+    so a call with another nreal adds nothing to the cache."""
+    msw = torch.zeros((16, 4), dtype=torch.int32)
+    cache = {}
+    for nreal in range(17):
+        qws, qhs = port._bucket_dims(msw, 5, 3, nreal, cache)
+        real = torch.arange(16) < nreal
+        assert torch.equal(qws, (real * 5).to(torch.int32))
+        assert torch.equal(qhs, (real * 3).to(torch.int32))
+        assert qws.is_contiguous() and qhs.is_contiguous()
+        assert qws.untyped_storage().data_ptr() \
+            == qhs.untyped_storage().data_ptr()
+    assert len(cache) == 1
+    port._bucket_dims(torch.zeros((8, 4), dtype=torch.int32), 5, 3, 2, cache)
+    assert len(cache) == 2
+    qws, _qhs = port._bucket_dims(msw, 5, 3, 7)       # no cache
+    assert torch.equal(qws, ((torch.arange(16) < 7) * 5).to(torch.int32))
