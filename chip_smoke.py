@@ -102,8 +102,7 @@ exits non-zero:
      0's own program and lanes (``Decoder._shard_plan`` /
      ``_v3_shard``); phase 7's refined c4 streams raise
      ``UnshardableBatch`` with ``require_shard``, and without it log
-     "cannot shard" and decode equal to their sources; the bench's c5 row
-     (``ffmpeg_ht_tpu_torch.bench.c5_row``) on phase 8's streams;
+     "cannot shard" and decode equal to their sources;
  10. the conformance corpus (a copy of tests/test_torch_conformance.py's,
      which pins it; the FATE goldens are read from tests/ref): 36 small
      streams, the 10 FATE codestreams and the device-path streams of the
@@ -191,7 +190,7 @@ os.environ["CUDA_VISIBLE_DEVICES"] = \
 import numpy as np
 import torch
 
-from ffmpeg_ht_tpu_torch import bench, cli
+from ffmpeg_ht_tpu_torch import cli
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu_torch.containers import mux
 from ffmpeg_ht_tpu_torch.containers.mxf import demux_mxf, mux_mxf
@@ -1128,7 +1127,7 @@ C12_W, C12_H = 1536, 1248
 C12_SINGLE = {k: v for k, v in C4_ENC.items()
               if k not in ("refinement", "ht_layers")}
 # the c4 decode_batch [A, B, A, B] program's device operations before
-# this phase's kernels: tools/profile_torch_v3.py --config c4 on an H100
+# this phase's kernels: torch.profiler over the program on an H100
 # 80GB HBM3 at 700 W (PERF.md, section 5)
 C4_PROGRAM_OPS_BEFORE = 2395
 # and the most it may run now: its kernels, the bitmap's memset and the ok
@@ -2022,9 +2021,8 @@ def _phase9(dev, c5_data, c4_data, single_ms):
     the card listed 2 and 3 times (F = 4 over D = 3 pads two frames), with
     and without the pack; the cleanup kernels and RCT against their plain
     versions on one shard's own program and lanes; phase 7's refined c4
-    streams, which cannot shard; and the bench's c5 row on phase 8's
-    streams. Returns (the shard's kernel checks, {path: (launch counts,
-    frames)})."""
+    streams, which cannot shard. Returns (the shard's kernel checks,
+    {path: (launch counts, frames)})."""
     srcs, streams, single = c5_data
     F, want = len(streams), [fr.tobytes() for fr in single]
     med = {k: statistics.median(v) for k, v in single_ms.items()}
@@ -2114,12 +2112,6 @@ def _phase9(dev, c5_data, c4_data, single_ms):
     print(f"phase 9 c4 refined streams with require_shard=True: "
           f"UnshardableBatch({reason!r}); without it: logged \"cannot "
           f"shard\", {len(frames)} frames == source on one device (v2)")
-
-    # the bench's c5 row on phase 8's streams
-    t0 = time.perf_counter()
-    row = bench.c5_row(Decoder(device=dev), dev, inputs=(srcs, streams))
-    print(f"phase 9 bench.c5_row on phase 8's streams "
-          f"({time.perf_counter() - t0:.1f} s): {json.dumps(row)}")
     return clean, paths
 
 

@@ -33,10 +33,10 @@ that CPU tensors take:
   frame axis over several devices, ``require_shard`` raises
   ``UnshardableBatch`` when it cannot) and ``bench_resident``, and the
   one-shot ``decode_frame_cuda``;
+- ``utils/trace``: spans and counters of the decoder's host path, off
+  until ``enable()``;
 - ``cli``: the ``jxt-torch`` tool (``decode``, ``encode``, ``probe``;
-  ``--device``), also ``python -m ffmpeg_ht_tpu_torch.cli``;
-- ``bench``: BASELINE's five configurations timed through the port, one
-  JSON line (``python -m ffmpeg_ht_tpu_torch.bench [--device cuda]``).
+  ``--device``), also ``python -m ffmpeg_ht_tpu_torch.cli``.
 
 The package imports neither ``jax`` nor ``ffmpeg_ht_tpu``.
 """

@@ -73,9 +73,8 @@ def _cmd_decode(args) -> int:
     if getattr(args, "device_resident", False):
         # chip-rate measurement: decode the input's frames back-to-back
         # device-resident (no host parse, no output fetch in the timed
-        # region) — reproduces bench.py's headline methodology on any
-        # user stream (Decoder.bench_resident docstring has the full
-        # contract)
+        # region), on any user stream (Decoder.bench_resident docstring
+        # has the full contract)
         if not args.benchmark:
             logger.error("--device-resident requires --benchmark")
             return 1
@@ -328,7 +327,7 @@ def main(argv=None) -> int:
     d.add_argument("--device-resident", dest="device_resident",
                    action="store_true",
                    help="with --benchmark: measure the device-resident "
-                        "chip rate (bench.py headline methodology)")
+                        "chip rate (the program alone, run back to back)")
     d.add_argument("--device", default="cuda",
                    help="torch device of the decoder (cuda, cuda:N, cpu; "
                         "default cuda; no fallback to the CPU)")

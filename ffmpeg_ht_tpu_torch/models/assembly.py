@@ -67,6 +67,7 @@ from ffmpeg_ht_tpu_torch.ops.ht_scan import (decode_cleanup_scan_dims,
                                              decode_cleanup_scan_sig)
 from ffmpeg_ht_tpu_torch.ops.mct_cuda import ict_writeframe, rct_writeframe
 from ffmpeg_ht_tpu_torch.ops.wirepack import pack_words
+from ffmpeg_ht_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -413,6 +414,7 @@ class V3Program(_Program):
                        self.transform == mk.DWT97_INT
                        and lev == len(self._lvls[i]) - 1) for i in todo]
 
+    @trace.timed("launch")
     def __call__(self, **args):
         return self.pack(*self.decode_planes(**args))
 
@@ -506,6 +508,7 @@ class BucketProgram(_Program):
         (every bucket has lanes: its pads at least)."""
         return coef_cuda.bucket_scatter_launches(len(self.shapes))
 
+    @trace.timed("launch")
     def __call__(self, pf_idx, pf_val, bucket_args):
         return self.pack(*self.decode_planes(pf_idx, pf_val, bucket_args))
 

@@ -81,6 +81,7 @@ from ffmpeg_ht_tpu_torch.models.fastpath import (_Geometry, finish_v3_numpy,
                                                  to_torch)
 from ffmpeg_ht_tpu_torch.models.host_decoder import DecodedFrame
 from ffmpeg_ht_tpu_torch.ops.wirepack import unpack_words
+from ffmpeg_ht_tpu_torch.utils import trace
 from ffmpeg_ht_tpu_torch.utils.device import resolve_device
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData, UnshardableBatch
 from ffmpeg_ht_tpu_torch.utils.log import logger
@@ -225,22 +226,24 @@ def _build_batch(hdr, tiles: List[Tile]):
                                 # scalar host decode into the prefill
                                 from ffmpeg_ht_tpu_torch.ops import dequant as dq
                                 from ffmpeg_ht_tpu_torch.ops import ht_dec
-                                t1 = ht_dec.decode_htj2k(
-                                    bytes(cblk.data), cblk.npasses,
-                                    cblk.zbp, cblk.pass_lengths, w, h,
-                                    magb, 0, int(causal))
-                                if transform == mk.DWT97:
-                                    blk = dq.dequant_float(
-                                        t1, band.f_stepsize, magb)
-                                elif transform == mk.DWT97_INT:
-                                    blk = dq.dequant_int_97(
-                                        t1, band.f_stepsize, magb)
-                                else:
-                                    blk = dq.dequant_int(
-                                        t1, band.i_stepsize, magb)
-                                for yy in range(h):
-                                    s = dest + yy * pstride
-                                    prefill[s:s + w] = blk[yy]
+                                trace.count("oracle_lanes")
+                                with trace.span("oracle"):
+                                    t1 = ht_dec.decode_htj2k(
+                                        bytes(cblk.data), cblk.npasses,
+                                        cblk.zbp, cblk.pass_lengths, w, h,
+                                        magb, 0, int(causal))
+                                    if transform == mk.DWT97:
+                                        blk = dq.dequant_float(
+                                            t1, band.f_stepsize, magb)
+                                    elif transform == mk.DWT97_INT:
+                                        blk = dq.dequant_int_97(
+                                            t1, band.f_stepsize, magb)
+                                    else:
+                                        blk = dq.dequant_int(
+                                            t1, band.i_stepsize, magb)
+                                    for yy in range(h):
+                                        s = dest + yy * pstride
+                                        prefill[s:s + w] = blk[yy]
                                 continue
                             buf = bytearray(cblk.data[:lcup])
                             if len(buf) < lcup:
@@ -353,7 +356,9 @@ def bucket_program(shapes: Tuple, geom_key: Tuple,
     """The BucketProgram of one bucket layout and geometry, built once
     (its DWT job table with it), as the JAX package caches
     ``_compiled_assembly`` (decoder.py:460)."""
-    return BucketProgram(shapes, geom_key, wire_pack=wire_pack)
+    with trace.span("build"):
+        trace.count("builds")
+        return BucketProgram(shapes, geom_key, wire_pack=wire_pack)
 
 
 def _bucket_arrays(b: _Bucket):
@@ -489,6 +494,7 @@ class Decoder:
         for hdr in hdrs:
             pf.negotiate(hdr.siz, hdr.colour_space, hdr.siz.rsiz)
 
+    @trace.timed("parse")
     def _parse(self, data: bytes):
         return parse_codestream(data, bitexact=self.bitexact,
                                 reduction_factor=self.reduction_factor)
@@ -514,22 +520,29 @@ class Decoder:
 
             pending = [dec.decode_async(s) for s in streams]
             frames = [p() for p in pending]
-        """
-        hdr = self._parse(data)
-        fast = self._fast_launch(hdr)
-        if fast is not None:
-            fg, packed = fast
-            fetch = self._start_fetch(packed)
-            return lambda: self._finish(hdr, fg.tiles, fg.geom, fetch())
-        tiles = self._parse_tiles(hdr)
-        if not _supported_on_device(hdr, tiles):
-            frame = host_decoder.decode_frame(
-                data, bitexact=self.bitexact,
-                reduction_factor=self.reduction_factor,
-                max_layers=self.max_layers)
-            self.host_frames += 1
-            return lambda: frame
-        return self._device_decode(hdr, tiles)
+
+        Traced (``utils/trace``), this part is the call's ``dispatch``
+        span and the callable its ``finish`` span."""
+        call = trace.new_call()
+        with trace.span("dispatch", call):
+            hdr = self._parse(data)
+            fast = self._fast_launch(hdr)
+            if fast is not None:
+                fg, packed = fast
+                fetch = self._start_fetch(packed)
+                fin = lambda: self._finish(hdr, fg.tiles, fg.geom, fetch())
+            else:
+                tiles = self._parse_tiles(hdr)
+                if _supported_on_device(hdr, tiles):
+                    fin = self._device_decode(hdr, tiles)
+                else:
+                    frame = host_decoder.decode_frame(
+                        data, bitexact=self.bitexact,
+                        reduction_factor=self.reduction_factor,
+                        max_layers=self.max_layers)
+                    self.host_frames += 1
+                    fin = lambda: frame
+        return _finishing(call, fin)
 
     def decode_stream(self, streams, depth: int = 3):
         """Pipelined decode of a frame sequence (generator): up to `depth`
@@ -549,9 +562,21 @@ class Decoder:
         if fg is None:
             if len(self._geoms) >= _MAX_GEOMS:   # bound the plan cache
                 self._geoms.pop(next(iter(self._geoms)))
-            fg = FP.FlatGeometry(hdr)
+            with trace.span("build"):
+                trace.count("builds")
+                fg = FP.FlatGeometry(hdr)
             self._geoms[key] = fg
         return fg
+
+    @staticmethod
+    def _plan(fg):
+        """The geometry's v3 assembly plan, built at its first use; False
+        where it has none."""
+        if fg.v3_plan is None:
+            with trace.span("build"):
+                trace.count("builds")
+                fg.v3_plan = ASM.build_plan(fg) or False
+        return fg.v3_plan
 
     def decode_batch(self, streams, devices=None,
                      require_shard: bool = False) -> List[DecodedFrame]:
@@ -569,22 +594,35 @@ class Decoder:
         without a card raises. When the batch cannot shard,
         `require_shard` raises ``UnshardableBatch`` naming the reason;
         otherwise the reason is logged as a warning and the batch
-        decodes on the decoder's own device."""
+        decodes on the decoder's own device.
+
+        Traced (``utils/trace``), the part up to the fetch being queued
+        is the call's ``dispatch`` span, the fetch wait and the write its
+        ``finish`` span."""
+        call = trace.new_call()
+        with trace.span("dispatch", call):
+            fin = self._batch_async(streams, devices, require_shard)
+        with trace.span("finish", call):
+            return fin()
+
+    def _batch_async(self, streams, devices, require_shard):
+        """``decode_batch`` up to the fetch being queued; returns the
+        callable that waits for it and builds the frames."""
         if devices is not None:
             if isinstance(devices, (str, torch.device)):
                 raise TypeError("devices must be a sequence of devices")
             devs = [resolve_device(d) for d in devices]
             if not devs:
                 raise ValueError("devices is empty")
-            out, why = self._decode_batch_sharded(streams, devs)
-            if out is not None:
-                return out
+            fin, why = self._decode_batch_sharded(streams, devs)
+            if fin is not None:
+                return fin
             if require_shard:
                 raise UnshardableBatch(why)
             logger.warning("decode_batch: cannot shard (%s); "
                            "decoding single-device", why)
         if not streams:
-            return []
+            return list
         hdrs = [self._parse(d) for d in streams]
         fast = self._fast_batch(hdrs)
         if fast is not None:
@@ -592,19 +630,20 @@ class Decoder:
         parsed = [(hdr, self._parse_tiles(hdr), data)
                   for hdr, data in zip(hdrs, streams)]
         if not all(_supported_on_device(h, t) for h, t, _ in parsed):
-            return [self.decode(d) for _, _, d in parsed]
+            return lambda: [self.decode(d) for _, _, d in parsed]
 
         self._negotiate(hdrs)
         geoms, bucket_maps, prefills = [], [], []
         for hdr, tiles, _ in parsed:
-            g, b, p = _build_batch(hdr, tiles)
+            with trace.span("lane_cols"):
+                g, b, p = _build_batch(hdr, tiles)
             geoms.append(g)
             bucket_maps.append(b)
             prefills.append(p)
 
         g0 = geoms[0]
         if any(g.key() != g0.key() for g in geoms[1:]):
-            return [self.decode(d) for _, _, d in parsed]
+            return lambda: [self.decode(d) for _, _, d in parsed]
 
         F = len(parsed)
         total = g0.total
@@ -622,9 +661,10 @@ class Decoder:
                                  + [np.zeros(1, prefills[0].dtype)])
 
         gm = _replicate_geometry(g0, F)
-        host = self._start_fetch(self._dispatch(gm, merged, prefill))()
+        fetch = self._start_fetch(self._dispatch(gm, merged, prefill))
         self.v2_frames += F
-        return self._split_frames([(h, t) for h, t, _ in parsed], g0, host)
+        return lambda: self._split_frames([(h, t) for h, t, _ in parsed], g0,
+                                          fetch())
 
     def _batch_geom(self, hdrs):
         """The FlatGeometry that fast-profile streams of one geometry
@@ -636,8 +676,10 @@ class Decoder:
 
     def _fast_batch(self, hdrs):
         """decode_batch's flat-lane program (decoder.py:1128-1174): the
-        V3Program of the F frames, else the BucketProgram on ``_v2_args``;
-        None when the streams leave the fast profile or one geometry."""
+        V3Program of the F frames, else the BucketProgram on ``_v2_args``,
+        dispatched; returns the callable that waits for its output and
+        builds the frames, or None when the streams leave the fast
+        profile or one geometry."""
         if self.max_layers:
             return None
         fg = self._batch_geom(hdrs)
@@ -657,9 +699,9 @@ class Decoder:
             geom, fin, _accum = self._v2_args(fg, cols_list)
             packed = self._dispatch_args(geom, *fin)
             self.v2_frames += F
-        host = self._start_fetch(packed)()
-        return self._split_frames([(h, fg.tiles) for h in hdrs], fg.geom,
-                                  host)
+        fetch = self._start_fetch(packed)
+        return lambda: self._split_frames([(h, fg.tiles) for h in hdrs],
+                                          fg.geom, fetch())
 
     def _shard_plan(self, streams, D: int):
         """((headers, FlatGeometry, the frames' ``build_v3_frame`` columns
@@ -679,9 +721,7 @@ class Decoder:
         if len({FP.geometry_fingerprint(h) for h in hdrs}) != 1:
             return None, "streams do not share one geometry"
         fg = self._fast_geom(hdrs[0])
-        if fg.v3_plan is None:
-            fg.v3_plan = ASM.build_plan(fg) or False
-        if fg.v3_plan is False or fg.ncblks == 0:
+        if self._plan(fg) is False or fg.ncblks == 0:
             return None, "geometry has no v3 assembly plan"
         frames = []
         for i, hdr in enumerate(hdrs):
@@ -705,8 +745,9 @@ class Decoder:
         V3Program of its Fl frames on devices[d] with its own lane
         arguments and shard-local prefill (``finish_v3_numpy`` of its
         frames). Every shard is uploaded and launched before any fetch is
-        waited for, so shards on several cards overlap. Returns (the F
-        frames, None), or (None, the reason) when the batch cannot shard
+        waited for, so shards on several cards overlap. Returns (the
+        callable that waits for the shards and builds the F frames, None),
+        or (None, the reason) when the batch cannot shard
         (``_shard_plan``)."""
         plan, why = self._shard_plan(streams, len(devices))
         if plan is None:
@@ -720,15 +761,18 @@ class Decoder:
             with torch.cuda.device(dev) if dev.type == "cuda" \
                     else contextlib.nullcontext():
                 fetches.append(self._start_fetch(prog(**args)))
-        out = []
-        for d, fetch in enumerate(fetches):
-            # the pad frames close the last shards: split the real ones
-            # only (_split_frames reads the flag at the buffer's end)
-            real = hdrs[d * Fl:(d + 1) * Fl]
-            out.extend(self._split_frames([(h, fg.tiles) for h in real],
-                                          fg.geom, fetch()))
         self.v3_frames += len(hdrs)
-        return out, None
+
+        def finish():
+            out = []
+            for d, fetch in enumerate(fetches):
+                # the pad frames close the last shards: split the real ones
+                # only (_split_frames reads the flag at the buffer's end)
+                real = hdrs[d * Fl:(d + 1) * Fl]
+                out.extend(self._split_frames([(h, fg.tiles) for h in real],
+                                              fg.geom, fetch()))
+            return out
+        return finish, None
 
     def bench_resident(self, streams, n_it: int = 10, reps: int = 3):
         """Device-resident decode rate for same-geometry streams
@@ -813,9 +857,7 @@ class Decoder:
         codeblocks, refinement lanes or a lane with maxbp > 25. The
         program packs its output into words when `wire_pack` (default:
         the decoder's choice for this depth) is true."""
-        if fg.v3_plan is None:
-            fg.v3_plan = ASM.build_plan(fg) or False
-        if fg.v3_plan is False or fg.ncblks == 0:
+        if self._plan(fg) is False or fg.ncblks == 0:
             return None
         frames = []
         for cols in cols_list:
@@ -839,10 +881,13 @@ class Decoder:
         key = (F, ms_class, no_istep, wp)
         prog = fg.v3_progs.get(key)
         if prog is None:
-            prog = V3Program(fg.v3_plan, fg.geom.key(),
-                             qw=fg.v3_plan.bw // 2, qh=fg.v3_plan.bh // 2,
-                             ms_class=ms_class, n_pad=fg.ncblks, frames=F,
-                             no_istep=no_istep, wire_pack=wp)
+            with trace.span("build"):
+                trace.count("builds")
+                prog = V3Program(fg.v3_plan, fg.geom.key(),
+                                 qw=fg.v3_plan.bw // 2,
+                                 qh=fg.v3_plan.bh // 2, ms_class=ms_class,
+                                 n_pad=fg.ncblks, frames=F,
+                                 no_istep=no_istep, wire_pack=wp)
             fg.v3_progs[key] = prog
         return prog, {k: to_torch(v, device) for k, v in args.items()}
 
@@ -852,23 +897,24 @@ class Decoder:
         order, and the host-decoded samples as a sparse prefill."""
         keys = sorted(buckets.keys())
         shapes, bucket_args = [], []
-        for key in keys:
-            args, _n = _bucket_arrays(buckets[key])
-            w, h = key[0], key[1]
-            # MagSgn budget class: must bound every real lane's maxbp
-            # (blocks > 25 went to host)
-            mb = max(buckets[key].maxbp)
-            ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-            shapes.append((-(-w // 2), -(-h // 2), w, h, ms_class,
-                           buckets[key].refined))
-            bucket_args.append(args)
-        nz = np.nonzero(prefill[:-1])[0]
-        if len(nz):
-            pf_idx = nz.astype(np.int32)
-            pf_val = prefill[nz]
-        else:
-            pf_idx = np.array([geom.total], np.int32)
-            pf_val = np.zeros(1, prefill.dtype)
+        with trace.span("lane_args"):
+            for key in keys:
+                args, _n = _bucket_arrays(buckets[key])
+                w, h = key[0], key[1]
+                # MagSgn budget class: must bound every real lane's maxbp
+                # (blocks > 25 went to host)
+                mb = max(buckets[key].maxbp)
+                ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
+                shapes.append((-(-w // 2), -(-h // 2), w, h, ms_class,
+                               buckets[key].refined))
+                bucket_args.append(args)
+            nz = np.nonzero(prefill[:-1])[0]
+            if len(nz):
+                pf_idx = nz.astype(np.int32)
+                pf_val = prefill[nz]
+            else:
+                pf_idx = np.array([geom.total], np.int32)
+                pf_val = np.zeros(1, prefill.dtype)
         return self._dispatch_args(geom, shapes, bucket_args, pf_idx, pf_val)
 
     def _dispatch_args(self, geom: _Geometry, shapes, bucket_args, pf_idx,
@@ -886,7 +932,8 @@ class Decoder:
         """Object path: bucket the codeblocks, upload, dispatch; no host
         sync. Returns (geom, packed output on the device)."""
         self._negotiate([hdr])
-        geom, buckets, prefill = _build_batch(hdr, tiles)
+        with trace.span("lane_cols"):
+            geom, buckets, prefill = _build_batch(hdr, tiles)
         return geom, self._dispatch(geom, buckets, prefill)
 
     def _device_decode(self, hdr, tiles):
@@ -899,22 +946,27 @@ class Decoder:
 
     def _start_fetch(self, packed):
         """Queue the device-to-host copy of the packed output behind the
-        decode; the returned callable waits for it."""
+        decode; the returned callable waits for it (span ``fetch``)."""
         if packed.device.type != "cuda":
-            return lambda: packed
+            def fetch():
+                with trace.span("fetch"):
+                    return packed
+            return fetch
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(packed.device))
 
         def fetch():
-            done.synchronize()
+            with trace.span("fetch"):
+                done.synchronize()
             return host
         return fetch
 
     def _finish(self, hdr, tiles, geom, packed) -> DecodedFrame:
         return self._split_frames([(hdr, tiles)], geom, packed)[0]
 
+    @trace.timed("write")
     def _split_frames(self, frames, geom, packed) -> List[DecodedFrame]:
         """The packed output of a program whose first len(frames) frames
         are the (hdr, tiles) frames of one geometry -> DecodedFrames (a
@@ -963,6 +1015,14 @@ class Decoder:
             _write_frame_prescaled(hdr, tile, comp_planes, fmt, planes,
                                    precision, cdef)
         return DecodedFrame(fmt=fmt, width=dimx, height=dimy, planes=planes)
+
+
+def _finishing(call: int, fin):
+    """`fin` timed as the ``finish`` span of entry call `call`."""
+    def finish():
+        with trace.span("finish", call):
+            return fin()
+    return finish
 
 
 def _write_frame_prescaled(hdr, tile, comp_planes, fmt, planes, precision,

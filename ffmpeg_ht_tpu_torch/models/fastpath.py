@@ -25,6 +25,7 @@ from ffmpeg_ht_tpu_torch.codestream import markers as mk
 from ffmpeg_ht_tpu_torch.codestream.geometry import init_tile
 from ffmpeg_ht_tpu_torch.codestream.t2 import packet_order
 from ffmpeg_ht_tpu_torch.ops.ht_batch import prepare_streams_with_limits
+from ffmpeg_ht_tpu_torch.utils import trace
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
 _HOST_AREA = 256           # as the reference's models.decoder
@@ -276,6 +277,7 @@ def geometry_fingerprint(hdr):
     return tuple(map(lambda v: tuple(v) if isinstance(v, list) else v, key))
 
 
+@trace.timed("parse")
 def parse_frame_flat(hdr, fg: FlatGeometry) -> Optional[dict]:
     """Native T2 parse of every tile into flat per-cblk columns.
 
@@ -386,6 +388,7 @@ def _finish_cols(cols: dict) -> dict:
     return cols
 
 
+@trace.timed("lane_cols")
 def build_bucket_args(fg: FlatGeometry, cols: dict, dest_shift=0,
                       prev=None):
     """Array-level replacement of _build_batch + _bucket_arrays.
@@ -428,28 +431,30 @@ def build_bucket_args(fg: FlatGeometry, cols: dict, dest_shift=0,
         from ffmpeg_ht_tpu_torch.ops import dequant as dq
         from ffmpeg_ht_tpu_torch.ops import ht_dec
         tf = fg.geom.transform
-        for k in np.nonzero(host)[0]:
-            gi = idx[k]
-            data = cols["body"][off[k]:off[k] + cols["len"][gi]]
-            t1 = ht_dec.decode_htj2k(
-                bytes(data), int(npasses[k]), int(cols["zbp"][gi]),
-                [int(lcup[k]), int(lref[k])], int(w[k]), int(h[k]),
-                int(fg.magb[gi]), 0, 0)
-            if tf == mk.DWT97:
-                blk = dq.dequant_float(
-                    t1, float(fg.fstep[gi]), int(fg.magb[gi]))
-            elif tf == mk.DWT97_INT:
-                blk = dq.dequant_int_97(
-                    t1, float(fg.fstep[gi]), int(fg.magb[gi]))
-            else:
-                blk = dq.dequant_int(t1, int(fg.istep[gi]),
-                                     int(fg.magb[gi]))
-            base = int(fg.dest[gi]) + dest_shift
-            stride = int(fg.stride[gi])
-            rows = base + np.arange(int(h[k]))[:, None] * stride \
-                + np.arange(int(w[k]))[None, :]
-            accum["pf_idx"].append(rows.ravel())
-            accum["pf_val"].append(np.asarray(blk).ravel())
+        trace.count("oracle_lanes", int(host.sum()))
+        with trace.span("oracle"):
+            for k in np.nonzero(host)[0]:
+                gi = idx[k]
+                data = cols["body"][off[k]:off[k] + cols["len"][gi]]
+                t1 = ht_dec.decode_htj2k(
+                    bytes(data), int(npasses[k]), int(cols["zbp"][gi]),
+                    [int(lcup[k]), int(lref[k])], int(w[k]), int(h[k]),
+                    int(fg.magb[gi]), 0, 0)
+                if tf == mk.DWT97:
+                    blk = dq.dequant_float(
+                        t1, float(fg.fstep[gi]), int(fg.magb[gi]))
+                elif tf == mk.DWT97_INT:
+                    blk = dq.dequant_int_97(
+                        t1, float(fg.fstep[gi]), int(fg.magb[gi]))
+                else:
+                    blk = dq.dequant_int(t1, int(fg.istep[gi]),
+                                         int(fg.magb[gi]))
+                base = int(fg.dest[gi]) + dest_shift
+                stride = int(fg.stride[gi])
+                rows = base + np.arange(int(h[k]))[:, None] * stride \
+                    + np.arange(int(w[k]))[None, :]
+                accum["pf_idx"].append(rows.ravel())
+                accum["pf_val"].append(np.asarray(blk).ravel())
 
     dev = ~host
     di = idx[dev]
@@ -489,6 +494,7 @@ def build_bucket_args(fg: FlatGeometry, cols: dict, dest_shift=0,
     return accum
 
 
+@trace.timed("lane_args")
 def finish_buckets(accum, total):
     """(shapes, bucket_args, pf_idx, pf_val) for decoder._dispatch_args,
     as numpy arrays (``to_torch`` uploads them): the reference
@@ -617,6 +623,7 @@ def lane_raster_dims(fg):
     return bh, bw
 
 
+@trace.timed("lane_cols")
 def build_v3_frame(fg, cols):
     """Per-frame v3 lane columns, or None if the frame needs v2.
 
@@ -691,31 +698,34 @@ def build_v3_frame(fg, cols):
         from ffmpeg_ht_tpu_torch.ops import ht_dec
         tf = fg.geom.transform
         bh, bw = lane_raster_dims(fg)
-        for gi in np.nonzero(host)[0]:
-            dat = cols["body"][cols["off"][gi]:
-                               cols["off"][gi] + cols["len"][gi]]
-            t1 = ht_dec.decode_htj2k(
-                bytes(dat), int(cols["npasses"][gi]),
-                int(cols["zbp"][gi]),
-                [int(cols["lcup"][gi]), int(cols["lref"][gi])],
-                int(fg.w[gi]), int(fg.h[gi]), int(fg.magb[gi]), 0, 0)
-            if tf == mk.DWT97:
-                blk = dq.dequant_float(t1, float(fg.fstep[gi]),
-                                       int(fg.magb[gi]))
-            elif tf == mk.DWT97_INT:
-                blk = dq.dequant_int_97(t1, float(fg.fstep[gi]),
-                                        int(fg.magb[gi]))
-            else:
-                blk = dq.dequant_int(t1, int(fg.istep[gi]),
-                                     int(fg.magb[gi]))
-            rows = (int(gi) * (bh * bw)
-                    + np.arange(int(fg.h[gi]))[:, None] * bw
-                    + np.arange(int(fg.w[gi]))[None, :])
-            host_pf.append((rows.ravel(), np.asarray(blk).ravel()))
+        trace.count("oracle_lanes", int(host.sum()))
+        with trace.span("oracle"):
+            for gi in np.nonzero(host)[0]:
+                dat = cols["body"][cols["off"][gi]:
+                                   cols["off"][gi] + cols["len"][gi]]
+                t1 = ht_dec.decode_htj2k(
+                    bytes(dat), int(cols["npasses"][gi]),
+                    int(cols["zbp"][gi]),
+                    [int(cols["lcup"][gi]), int(cols["lref"][gi])],
+                    int(fg.w[gi]), int(fg.h[gi]), int(fg.magb[gi]), 0, 0)
+                if tf == mk.DWT97:
+                    blk = dq.dequant_float(t1, float(fg.fstep[gi]),
+                                           int(fg.magb[gi]))
+                elif tf == mk.DWT97_INT:
+                    blk = dq.dequant_int_97(t1, float(fg.fstep[gi]),
+                                            int(fg.magb[gi]))
+                else:
+                    blk = dq.dequant_int(t1, int(fg.istep[gi]),
+                                         int(fg.magb[gi]))
+                rows = (int(gi) * (bh * bw)
+                        + np.arange(int(fg.h[gi]))[:, None] * bw
+                        + np.arange(int(fg.w[gi]))[None, :])
+                host_pf.append((rows.ravel(), np.asarray(blk).ravel()))
     return dict(data=data, lcups=lcups, pcups=pcups, qws=qws, qhs=qhs,
                 pLSB=pLSB, maxbp=maxbp, host_pf=host_pf)
 
 
+@trace.timed("lane_args")
 def finish_v3_numpy(fg, frames_cols, total):
     """Stack per-frame ``build_v3_frame`` columns into the v3 program's
     arguments as numpy arrays (JAX dtypes: uint32 streams, int32 vectors,
@@ -772,6 +782,7 @@ def finish_v3_numpy(fg, frames_cols, total):
     return args, F
 
 
+@trace.timed("upload")
 def to_torch(a: np.ndarray, device) -> torch.Tensor:
     """numpy -> torch on `device`; uint32 arrays become int32 bit views.
 

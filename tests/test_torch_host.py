@@ -41,7 +41,6 @@ STREAMS = {
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_torch_v3.py"),
              os.path.join(REPO, "tools", "sweep_vlc_pass.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO,
                                                    "ffmpeg_ht_tpu_torch")):
