@@ -3,14 +3,17 @@
 Counterpart of ``ffmpeg_ht_tpu.models.fastpath``. The host half is
 copied verbatim from it (numpy and C, no framework): ``fast_profile``,
 ``FlatGeometry`` (with the ``_Geometry`` plan of the reference decoder),
-``geometry_fingerprint``, ``parse_frame_flat``, ``lane_raster_dims`` and
-``build_v3_frame`` for the v3 program; ``build_bucket_args`` for the v2
-bucketed path. ``finish_v3_numpy`` / ``to_torch`` replace the reference
-``finish_v3``, and ``finish_buckets`` the reference function of that
-name, which end in ``jnp.asarray``: the names and layouts of the returned
-arguments are those of the JAX functions, so both packages can be handed
-identical arrays; uint32 word streams travel as int32 tensors holding the
-same bits.
+``geometry_fingerprint``, ``parse_frame_flat`` and ``lane_raster_dims``;
+``build_bucket_args`` for the v2 bucketed path. ``build_v3_frame`` keeps
+the reference's lane columns but returns each lane's place in the
+codestream body in place of a padded byte matrix, and ``finish_v3_numpy``
+packs the word streams from the bodies in one native pass
+(``native.ht_prepare_v3``). ``finish_v3_numpy`` / ``to_torch`` replace
+the reference ``finish_v3``, and ``finish_buckets`` the reference
+function of that name, which end in ``jnp.asarray``: the names, layouts
+and bits of the returned arguments are those of the JAX functions, so
+both packages can be handed identical arrays; uint32 word streams travel
+as int32 tensors holding the same bits.
 """
 
 from __future__ import annotations
@@ -627,14 +630,15 @@ def lane_raster_dims(fg):
 def build_v3_frame(fg, cols):
     """Per-frame v3 lane columns, or None if the frame needs v2.
 
-    Returns dict(data, lcups, pcups, qws, qhs, pLSB, maxbp, host_pf)
-    with data an (N, Lmax) modDcup'ed byte matrix (device lanes only;
-    host/inert lanes zero) and host_pf a list of (idx, values) numpy
-    pairs from the scalar-oracle fallback lanes, indexed in LANE-RASTER
-    coordinates (gi * bh * bw + y * bw + x): the fused program scatters
-    them into the dequantized lane rasters before the band mosaics, so
-    host lanes ride the same scatter-free assembly as device lanes."""
-    N = fg.ncblks
+    Returns dict(body, off, dev, lcups, pcups, qws, qhs, pLSB, maxbp,
+    host_pf): lane i reads ``body[off[i] + j]`` for j < lcups[i] (0 past
+    the body's end), with modDcup on the device lanes (`dev`); host and
+    inert lanes read two bytes as they are. host_pf is a list of (idx,
+    values) numpy pairs from the scalar-oracle fallback lanes, indexed in
+    LANE-RASTER coordinates (gi * bh * bw + y * bw + x): the fused program
+    scatters them into the dequantized lane rasters before the band
+    mosaics, so host lanes ride the same scatter-free assembly as device
+    lanes. ``finish_v3_numpy`` packs the lanes' word streams."""
     body = np.frombuffer(cols["body"], np.uint8)
     act = cols["active"]
     npasses = np.where(act, cols["npasses"], 0)
@@ -662,29 +666,14 @@ def build_v3_frame(fg, cols):
             host = host | (act & (need > wcap))
             dev = act & ~host
 
-    lmax = int(lcup[dev].max()) if np.any(dev) else 4
-    lmax = max(lmax, 4)
-    # one padded gather builds the byte matrix: the native stream prep
-    # reads each lane strictly within [pcup, lcup), so bytes beyond a
-    # lane's lcup (or in non-device rows) need no zero mask, and the
-    # zero tail makes end-of-body clipping unnecessary (int32 indices:
-    # this matrix is rebuilt per frame and was the prep's hot spot)
-    body_pad = np.concatenate([body, np.zeros(lmax + 8, np.uint8)])
-    idx = (cols["off"].astype(np.int32)[:, None]
-           + np.arange(lmax, dtype=np.int32)[None, :])
-    data = body_pad[idx]
-
     lcups = np.where(dev, lcup, 2).astype(np.int64)
-    # Scup + modDcup (vectorized; parity jpeg2000htdec.c:1265-1278)
-    ar = np.arange(N)
-    b_last = data[ar, lcups - 1].astype(np.int64)
-    b_prev = data[ar, lcups - 2].astype(np.int64)
+    off = np.asarray(cols["off"], np.int64)
+    # Scup from each lane's last two bytes (parity jpeg2000htdec.c:1265-1278)
+    b_last = _bytes_at(body, off + lcups - 1)
+    b_prev = _bytes_at(body, off + lcups - 2)
     scup = (b_last << 4) + (b_prev & 0x0F)
     if np.any(dev & ((scup < 2) | (scup > lcups) | (scup > 4079))):
         raise InvalidData("invalid Scup")
-    data[ar, lcups - 1] = np.where(dev, 0xFF, data[ar, lcups - 1])
-    data[ar, lcups - 2] = np.where(dev, data[ar, lcups - 2] | 0x0F,
-                                   data[ar, lcups - 2])
     pcups = np.where(dev, lcups - scup, 0).astype(np.int64)
 
     qws = np.where(dev, -(-fg.w // 2), 0).astype(np.int32)
@@ -721,30 +710,36 @@ def build_v3_frame(fg, cols):
                         + np.arange(int(fg.h[gi]))[:, None] * bw
                         + np.arange(int(fg.w[gi]))[None, :])
                 host_pf.append((rows.ravel(), np.asarray(blk).ravel()))
-    return dict(data=data, lcups=lcups, pcups=pcups, qws=qws, qhs=qhs,
-                pLSB=pLSB, maxbp=maxbp, host_pf=host_pf)
+    return dict(body=body, off=off, dev=dev, lcups=lcups, pcups=pcups,
+                qws=qws, qhs=qhs, pLSB=pLSB, maxbp=maxbp, host_pf=host_pf)
+
+
+def _bytes_at(body, pos):
+    """body[pos] as int64, 0 at or past the body's end."""
+    out = np.zeros(len(pos), np.int64)
+    inside = pos < len(body)
+    out[inside] = body[pos[inside]]
+    return out
 
 
 @trace.timed("lane_args")
 def finish_v3_numpy(fg, frames_cols, total):
-    """Stack per-frame ``build_v3_frame`` columns into the v3 program's
+    """Pack per-frame ``build_v3_frame`` columns into the v3 program's
     arguments as numpy arrays (JAX dtypes: uint32 streams, int32 vectors,
-    float32 fscale). Returns (args, F)."""
+    float32 fscale): one native pass from the frames' bodies to the word
+    streams. Returns (args, F)."""
+    from ffmpeg_ht_tpu_torch.utils import native
     F = len(frames_cols)
     N = fg.ncblks
-    lmax = max(f["data"].shape[1] for f in frames_cols)
-    data = np.zeros((F * N, lmax), np.uint8)
-    lcups = np.empty(F * N, np.int64)
-    pcups = np.empty(F * N, np.int64)
-    for f, fc in enumerate(frames_cols):
-        data[f * N:(f + 1) * N, :fc["data"].shape[1]] = fc["data"]
-        lcups[f * N:(f + 1) * N] = fc["lcups"]
-        pcups[f * N:(f + 1) * N] = fc["pcups"]
-    msw, melw, vlcw, ms_lim, mel_lim = prepare_streams_with_limits(
-        data, lcups, pcups)
 
     def stack(key, dtype):
         return np.concatenate([fc[key] for fc in frames_cols]).astype(dtype)
+
+    trace.count("direct_prep_lanes", F * N)
+    msw, melw, vlcw, ms_lim, mel_lim = native.ht_prepare_v3(
+        [fc["body"] for fc in frames_cols], stack("off", np.int64),
+        stack("lcups", np.int64), stack("pcups", np.int64),
+        stack("dev", bool))
 
     bh, bw = lane_raster_dims(fg)
     lane_span = N * bh * bw                 # one frame's lane-raster size
@@ -772,8 +767,7 @@ def finish_v3_numpy(fg, frames_cols, total):
     args = dict(
         msw=msw, melw=melw, vlcw=vlcw,
         pLSB=stack("pLSB", np.int32), maxbp=stack("maxbp", np.int32),
-        ms_lim=np.asarray(ms_lim, np.int32),
-        mel_lim=np.asarray(mel_lim, np.int32),
+        ms_lim=ms_lim, mel_lim=mel_lim,
         qws=stack("qws", np.int32), qhs=stack("qhs", np.int32),
         magb=tile(fg.magb, np.int32), istep=tile(fg.istep, np.int32),
         scale97=tile(fg.scale97, np.int32),

@@ -241,6 +241,18 @@ def prepare_refinement_streams(dref, lref):
             prepare_magref_stream(dref, lref))
 
 
+def _pow2_width(need: int) -> int:
+    """The stored width of a word stream whose last set word is at
+    `need` - 3: quantized to 4 steps per octave (quarter-pow2 grid), <=25%
+    worst-case rounding waste (~11% mean) for ~4x the executable variants
+    of pure pow2 — the upload link, not compile count, is the throughput
+    wall."""
+    if need <= 16:
+        return 16
+    step = max(1 << max((need - 1).bit_length() - 3, 2), 4)
+    return -(-need // step) * step
+
+
 def _trim_pow2(a: np.ndarray) -> np.ndarray:
     """Trim trailing all-zero word columns, then pad to a pow2 width.
 
@@ -251,15 +263,7 @@ def _trim_pow2(a: np.ndarray) -> np.ndarray:
     """
     n, w0 = a.shape
     nz = np.nonzero(a.any(axis=0))[0]
-    need = (int(nz[-1]) + 3) if len(nz) else 2
-    # quantize to 4 steps per octave (quarter-pow2 grid): <=25% worst-case
-    # rounding waste (~11% mean) for ~4x the executable variants of pure
-    # pow2 — the upload link, not compile count, is the throughput wall
-    if need <= 16:
-        w = 16
-    else:
-        step = max(1 << max((need - 1).bit_length() - 3, 2), 4)
-        w = -(-need // step) * step
+    w = _pow2_width((int(nz[-1]) + 3) if len(nz) else 2)
     if w >= w0:
         out = np.zeros((n, w), np.uint32)
         out[:, :w0] = a

@@ -83,6 +83,14 @@ def load():
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p,
         ]
+        v3_rows = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+        lib.ht_v3_extents.restype = ctypes.c_int
+        lib.ht_v3_extents.argtypes = v3_rows + [ctypes.c_void_p] * 3
+        lib.ht_v3_pack.restype = ctypes.c_int
+        lib.ht_v3_pack.argtypes = v3_rows + [ctypes.c_void_p,
+                                             ctypes.c_int64] * 3
         _LIB = lib
         return _LIB
 
@@ -97,9 +105,9 @@ def ht_prepare_streams(data: np.ndarray, lcup: np.ndarray,
     lcup = np.ascontiguousarray(lcup, np.int64)
     pcup = np.ascontiguousarray(pcup, np.int64)
     w_cap = (8 * l + 64) // 32 + 3
-    msw = np.zeros((n, w_cap), np.uint32)
-    melw = np.zeros((n, w_cap), np.uint32)
-    vlcw = np.zeros((n, w_cap), np.uint32)
+    msw = np.empty((n, w_cap), np.uint32)       # the C prep writes every word
+    melw = np.empty((n, w_cap), np.uint32)
+    vlcw = np.empty((n, w_cap), np.uint32)
     maxw = np.zeros(1, np.int64)
     ms_lim = np.zeros(n, np.int32)
     mel_lim = np.zeros(n, np.int32)
@@ -113,6 +121,52 @@ def ht_prepare_streams(data: np.ndarray, lcup: np.ndarray,
     from ffmpeg_ht_tpu_torch.ops.ht_batch import _trim_pow2
     out = (_trim_pow2(msw), _trim_pow2(melw), _trim_pow2(vlcw))
     return out + (ms_lim, mel_lim) if want_limits else out
+
+
+def ht_prepare_v3(bodies, off, lcup, pcup, moddcup):
+    """The v3 program's stream words straight from the frames' codestream
+    bodies, as ``ht_prepare_streams(..., want_limits=True)`` gives them for
+    the byte matrix of these rows: (msw, melw, vlcw, ms_lim, mel_lim).
+
+    bodies: F uint8 arrays; off, lcup, pcup: (F * n,) int64, row f * n + i
+    reading ``bodies[f][off + j]`` for j < lcup (0 past the body's end);
+    moddcup: (F * n,) bool, the rows whose last two bytes take modDcup.
+    One pass finds each stream's extent, one writes the words at the width
+    ``ht_batch._trim_pow2`` would give them."""
+    from ffmpeg_ht_tpu_torch.ops.ht_batch import _pow2_width
+    lib = load()
+    bodies = [np.ascontiguousarray(b, np.uint8) for b in bodies]
+    F = len(bodies)
+    rows = len(lcup)
+    if F == 0 or rows % F:
+        raise ValueError(f"{rows} rows do not split into {F} frames")
+    ptrs = np.array([b.ctypes.data for b in bodies], np.uintp)
+    blen = np.array([len(b) for b in bodies], np.int64)
+    off = np.ascontiguousarray(off, np.int64)
+    lcup = np.ascontiguousarray(lcup, np.int64)
+    pcup = np.ascontiguousarray(pcup, np.int64)
+    moddcup = np.ascontiguousarray(moddcup, np.uint8)
+    if not len(off) == len(pcup) == len(moddcup) == rows:
+        raise ValueError("row columns of unequal length")
+    head = (ptrs.ctypes.data, blen.ctypes.data, F, rows // F,
+            off.ctypes.data, lcup.ctypes.data, pcup.ctypes.data,
+            moddcup.ctypes.data)
+    ms_lim = np.empty(rows, np.int32)
+    mel_lim = np.empty(rows, np.int32)
+    last = np.empty(3, np.int64)
+    rc = lib.ht_v3_extents(*head, ms_lim.ctypes.data, mel_lim.ctypes.data,
+                           last.ctypes.data)
+    if rc == 0:
+        out = [np.empty((rows, _pow2_width(int(w) + 3)), np.uint32)
+               for w in last]
+        rc = lib.ht_v3_pack(*head, *(x for a in out
+                                     for x in (a.ctypes.data, a.shape[1])))
+    if rc == -2:
+        raise MemoryError("v3 stream prep: no row buffer")
+    if rc != 0:
+        raise ValueError("v3 stream prep: a lane's pcup lies outside "
+                         "[0, lcup]")
+    return (*out, ms_lim, mel_lim)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,8 @@ from ffmpeg_ht_tpu.models import fastpath as FP
 from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k, encode_frame_t800
 from ffmpeg_ht_tpu.ops.dwt import DWT97_INT
+from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream as \
+    port_parse
 from ffmpeg_ht_tpu_torch.models import fastpath as port_fp
 from ffmpeg_ht_tpu_torch.models.assembly import V3Program, build_plan
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
@@ -101,6 +103,13 @@ def _v3_frame(data, bitexact=True):
     return fg, fc
 
 
+def _port_v3_frame(data, bitexact=True):
+    """The port's own FlatGeometry and v3 lane columns of the stream."""
+    hdr = port_parse(data, bitexact=bitexact)
+    fg = port_fp.FlatGeometry(hdr)
+    return fg, port_fp.build_v3_frame(fg, port_fp.parse_frame_flat(hdr, fg))
+
+
 def _ms_class(fc):
     mb = int(fc["maxbp"][fc["qws"] > 0].max())
     return next(c for c in (8, 12, 16, 20, 25) if mb <= c)
@@ -120,12 +129,15 @@ def lossy_streams():
 def test_finish_v3_matches_jax(lossy_streams):
     """The lane arguments, the state the JAX side hands the device program,
     equal the JAX package's for a 5/3 RCT stream, an integer 9/7 stream
-    (scale97 pinned) and a float 9/7 one (fscale pinned)."""
+    (scale97 pinned) and a float 9/7 one (fscale pinned), each package
+    from its own lane columns of the stream."""
     for data, bitexact in [(STREAMS["rgb10_rct"], True)] + lossy_streams:
         fg, fc = _v3_frame(data, bitexact)
+        pfg, pfc = _port_v3_frame(data, bitexact)
         want, F = FP.finish_v3(fg, [fc, fc], fg.geom.total)
-        got_np, F2 = port_fp.finish_v3_numpy(fg, [fc, fc], fg.geom.total)
-        got, _ = port_fp.finish_v3(fg, [fc, fc], fg.geom.total, "cpu")
+        got_np, F2 = port_fp.finish_v3_numpy(pfg, [pfc, pfc],
+                                             pfg.geom.total)
+        got, _ = port_fp.finish_v3(pfg, [pfc, pfc], pfg.geom.total, "cpu")
         assert F == F2 == 2 and set(want) == set(got_np) == set(got)
         if not bitexact:
             assert np.asarray(want["fscale"]).any()
@@ -164,10 +176,10 @@ def test_prefill_scatter_matches_jax(jax_dec):
     import jax.numpy as jnp
     args["pf_idx"], args["pf_val"] = jnp.asarray(pf_idx), jnp.asarray(pf_val)
     want = np.asarray(jprog(**args))
-    np_args, _ = port_fp.finish_v3_numpy(fg, [fc], fg.geom.total)
+    pfg, pfc = _port_v3_frame(data)
+    np_args, _ = port_fp.finish_v3_numpy(pfg, [pfc], pfg.geom.total)
     np_args["pf_idx"], np_args["pf_val"] = pf_idx, pf_val
-    plan = build_plan(port_fp.FlatGeometry(parse_codestream(
-        data, bitexact=True)))
+    plan = build_plan(pfg)
     prog = V3Program(plan, fg.geom.key(), qw=bw // 2, qh=bh // 2,
                      ms_class=_ms_class(fc), n_pad=fg.ncblks, frames=1,
                      no_istep=True)
@@ -183,9 +195,9 @@ def test_u_bound_violation_raises_invalid_data(dec):
     frame is rejected (decoder.py:1191-1200)."""
     data = STREAMS["gray8"]
     dec.decode(data)
-    hdr = parse_codestream(data, bitexact=True)
+    hdr = port_parse(data, bitexact=True)
     fg = dec._fast_geom(hdr)
-    fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
+    fc = port_fp.build_v3_frame(fg, port_fp.parse_frame_flat(hdr, fg))
     args, _ = port_fp.finish_v3(fg, [fc], fg.geom.total, "cpu")
     args["maxbp"][:] = 1
     prog = fg.v3_progs[(1, _ms_class(fc), True, False)]

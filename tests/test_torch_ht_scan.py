@@ -27,7 +27,9 @@ from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu.ops.ht_batch import prepare_streams_batch, stream_limits
 from ffmpeg_ht_tpu.ops.ht_enc import encode_cleanup
 from ffmpeg_ht_tpu.ops.ht_scan import _cleanup_impl, decode_cleanup_scan_dims
-from ffmpeg_ht_tpu_torch.models.fastpath import finish_v3_numpy
+from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream as \
+    port_parse
+from ffmpeg_ht_tpu_torch.models import fastpath as port_fp
 from ffmpeg_ht_tpu_torch.ops import ht_scan as port
 
 KEYS = ("msw", "melw", "vlcw", "pLSB", "maxbp", "ms_lim", "mel_lim", "qws",
@@ -153,12 +155,18 @@ def test_cleanup_ref_highdepth():
     hdr = parse_codestream(data, bitexact=True)
     fg = FP.FlatGeometry(hdr)
     fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
-    args, _ = finish_v3_numpy(fg, [fc], fg.geom.total)
+    phdr = port_parse(data, bitexact=True)
+    pfg = port_fp.FlatGeometry(phdr)
+    pfc = port_fp.build_v3_frame(pfg, port_fp.parse_frame_flat(phdr, pfg))
+    args, _ = port_fp.finish_v3_numpy(pfg, [pfc], pfg.geom.total)
     plan = ASM.build_plan(fg)
     qw, qh = plan.bw // 2, plan.bh // 2
     mb = int(fc["maxbp"][fc["qws"] > 0].max())
     msc = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-    a = [jnp.asarray(args[k]) for k in KEYS]
+    jargs, _ = FP.finish_v3(fg, [fc], fg.geom.total)
+    for k in KEYS:
+        assert np.array_equal(args[k], np.asarray(jargs[k])), k
+    a = [jargs[k] for k in KEYS]
     want = _cleanup_impl(*a[:7], qw=qw, qh=qh, ms_class=msc,
                          dims=(a[7], a[8]))
     got = port.decode_cleanup_scan_dims(*(_tt(args[k]) for k in KEYS), qw,

@@ -11,7 +11,9 @@ streams only: 96x128 gray, ``nreslevels=3``, 32x32 codeblocks.
 import numpy as np
 import pytest
 
+from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu_torch.models import encoder
+from ffmpeg_ht_tpu_torch.models import fastpath as FP
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
 from ffmpeg_ht_tpu_torch.utils import trace
 from htbench import program_trace, spec, tracing
@@ -196,6 +198,30 @@ def test_long_tail_codeblock_is_an_oracle_span_and_counted(tracer):
     spans = tracer.drain()
     (oracle,) = [s for s in spans if s[0] == "oracle"]
     assert spans[oracle[4]][0] == "lane_cols"
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_direct_prep_counts_the_v3_lanes_and_no_v2_lane(frames, tracer,
+                                                       entry):
+    """A traced v3 decode counts ``direct_prep_lanes`` = N lanes a frame
+    (the lane build's direct pass from the bodies); a v2 decode, whose
+    refinement lanes take the byte-matrix prep, counts none."""
+    imgs, streams = frames
+    hdr = parse_codestream(streams[0], bitexact=True)
+    n = FP.FlatGeometry(hdr).ncblks
+    dec = Decoder(device="cpu")
+    before = trace.counters.get("direct_prep_lanes", 0)
+    got = _decode(dec, entry, streams)
+    assert [f.planes[0].tolist() for f in got] == [x.tolist() for x in imgs]
+    assert dec.v3_frames == len(streams) and not dec.v2_frames
+    assert trace.counters["direct_prep_lanes"] - before == n * len(streams)
+    assert any(s[0] == "lane_args" for s in tracer.drain())
+    v2 = encoder.encode_frame_htj2k(imgs[0], refinement=True, ht_layers=2,
+                                    **ENC)
+    before = trace.counters["direct_prep_lanes"]
+    frame = dec.decode(v2)
+    assert dec.v2_frames == 1 and np.array_equal(frame.planes[0], imgs[0])
+    assert trace.counters["direct_prep_lanes"] == before
 
 
 def test_builds_count_a_new_geometry_once(frames, tracer):
