@@ -662,7 +662,7 @@ class Decoder:
 
         gm = _replicate_geometry(g0, F)
         fetch = self._start_fetch(self._dispatch(gm, merged, prefill))
-        self.v2_frames += F
+        self._dispatched("v2", g0.transform, F)
         return lambda: self._split_frames([(h, t) for h, t, _ in parsed], g0,
                                           fetch())
 
@@ -694,11 +694,11 @@ class Decoder:
         if v3 is not None:
             prog, args = v3
             packed = prog(**args)
-            self.v3_frames += F
+            self._dispatched("v3", fg.geom.transform, F)
         else:
             geom, fin, _accum = self._v2_args(fg, cols_list)
             packed = self._dispatch_args(geom, *fin)
-            self.v2_frames += F
+            self._dispatched("v2", fg.geom.transform, F)
         fetch = self._start_fetch(packed)
         return lambda: self._split_frames([(h, fg.tiles) for h in hdrs],
                                           fg.geom, fetch())
@@ -761,7 +761,7 @@ class Decoder:
             with torch.cuda.device(dev) if dev.type == "cuda" \
                     else contextlib.nullcontext():
                 fetches.append(self._start_fetch(prog(**args)))
-        self.v3_frames += len(hdrs)
+        self._dispatched("v3", fg.geom.transform, len(hdrs))
 
         def finish():
             out = []
@@ -830,11 +830,11 @@ class Decoder:
         v3 = self._v3_program(fg, [cols]) if self._v3_enabled() else None
         if v3 is not None:
             prog, args = v3
-            self.v3_frames += 1
+            self._dispatched("v3", fg.geom.transform, 1)
             return fg, prog(**args)
         geom, fin, _accum = self._v2_args(fg, [cols])
         packed = self._dispatch_args(geom, *fin)
-        self.v2_frames += 1
+        self._dispatched("v2", fg.geom.transform, 1)
         return fg, packed
 
     def _v2_args(self, fg, cols_list):
@@ -941,8 +941,19 @@ class Decoder:
         return the callable that finishes the frame."""
         geom, packed = self._launch(hdr, tiles)
         fetch = self._start_fetch(packed)
-        self.v2_frames += 1
+        self._dispatched("v2", geom.transform, 1)
         return lambda: self._finish(hdr, tiles, geom, fetch())
+
+    def _dispatched(self, route: str, transform: int, frames: int) -> None:
+        """Count `frames` dispatched to a program: ``v3_frames`` or
+        ``v2_frames`` by `route`, and the trace counter ``float97_frames``
+        where they take the float 9/7."""
+        if route == "v3":
+            self.v3_frames += frames
+        else:
+            self.v2_frames += frames
+        if transform == mk.DWT97:
+            trace.count("float97_frames", frames)
 
     def _start_fetch(self, packed):
         """Queue the device-to-host copy of the packed output behind the

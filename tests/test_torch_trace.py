@@ -5,8 +5,11 @@ on the CPU, and the benchmark's readers of them (``htbench/layers``,
 Off, the tracer records nothing; on, each entry call of ``Decoder`` opens
 a ``dispatch`` and a ``finish`` span under its own call id, with the
 lane build, upload, program call, fetch and write below them. Small
-streams only: 96x128 gray, ``nreslevels=3``, 32x32 codeblocks.
+streams only: 96x128 gray (RGB 9/7 + ICT for the float 9/7 count),
+``nreslevels=3``, 32x32 codeblocks.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -224,6 +227,31 @@ def test_direct_prep_counts_the_v3_lanes_and_no_v2_lane(frames, tracer,
     assert trace.counters["direct_prep_lanes"] == before
 
 
+@pytest.mark.parametrize("v3", ["1", "0"])
+def test_float97_frames_count_float_frames_on_either_program(monkeypatch,
+                                                             v3):
+    """Each frame dispatched on the float 9/7 counts once, on the v3 and
+    on the v2 program, through both entries; frames of the integer 9/7
+    and of the 5/3 count nothing."""
+    monkeypatch.setenv("FFMPEG_HT_TPU_V3", v3)
+    rgb = np.random.default_rng(4).integers(0, 256, (96, 128, 3),
+                                            dtype=np.uint8)
+    lossy = [encoder.encode_frame_htj2k(np.roll(rgb, k, 1), pred=0,
+                                        mct=True, **ENC) for k in (0, 3)]
+    route = "v3_frames" if v3 == "1" else "v2_frames"
+    for bitexact, counted in ((False, 1), (True, 0)):
+        dec = Decoder(device="cpu", bitexact=bitexact)
+        f0 = trace.counters.get("float97_frames", 0)
+        dec.decode_batch(lossy)
+        list(dec.decode_stream(lossy))
+        assert getattr(dec, route) == 4
+        assert trace.counters.get("float97_frames", 0) - f0 == 4 * counted
+    gray = encoder.encode_frame_htj2k(_gray(9), **ENC)
+    f0 = trace.counters.get("float97_frames", 0)
+    Decoder(device="cpu").decode_batch([gray, gray])
+    assert trace.counters.get("float97_frames", 0) == f0
+
+
 def test_builds_count_a_new_geometry_once(frames, tracer):
     _imgs, streams = frames
     dec = Decoder(device="cpu")
@@ -249,7 +277,7 @@ class FakeTracer:
     call 2 over 10-20 ms and 40-50 ms."""
 
     def __init__(self, dispatch=True):
-        self.counters = {"builds": 5, "oracle_lanes": 2}
+        self.counters = {"builds": 5, "oracle_lanes": 2, "float97_frames": 4}
         self._launches, self._on, self._recorded = 100, False, False
         self.spans = []
         for call, d0, f0 in ((1, 0, 30), (2, 10, 40)):
@@ -271,7 +299,7 @@ class FakeTracer:
     def record(self):
         """The window: its spans, and what it adds to the counters."""
         self._recorded = True
-        self.counters = {"builds": 6, "oracle_lanes": 5}
+        self.counters = {"builds": 6, "oracle_lanes": 5, "float97_frames": 6}
         self._launches += 20
 
     def drain(self):
@@ -294,7 +322,7 @@ READERS = {"parse_ms": 1.0, "lane_cols_ms": 4.0, "lane_args_ms": 1.0,
            "upload_ms": 1.0, "launch_ms": 1.0, "fetch_ms": 1.0,
            "write_ms": 8.0, "output_held_ms": 20.0,
            "launches_per_frame": 10.0, "oracle_lanes_per_frame": 1.5,
-           "builds": 1}
+           "builds": 1, "float97_frames_per_frame": 1.0}
 
 
 def _traced(monkeypatch, fake):
@@ -322,6 +350,80 @@ def test_reader_is_none_without_the_programs_tracer(monkeypatch, name):
     # a tracer that saw no entry call (the control's window): None too
     t = _traced(monkeypatch, FakeTracer(dispatch=False))
     assert spec.module("layers", name).read(t) is None
+
+
+def test_float97_reader_is_none_where_the_program_has_no_counter(
+        monkeypatch):
+    fake = FakeTracer()
+    t = _traced(monkeypatch, fake)
+    del fake.counters["float97_frames"]       # an older program's tracer
+    assert spec.module("layers", "float97_frames_per_frame").read(t) is None
+    assert spec.module("layers", "builds").read(t) == 1
+
+
+def _lossy_window(ops, bw=3.35e12):
+    """A 1 s window of eight 1080p RGB frames."""
+    return tracing.TraceData(t0=1.0, t1=2.0, frames=8, device_ops=ops,
+                             output_bytes=1080 * 1920 * 3 * 8,
+                             hbm_bytes_per_s=bw)
+
+
+def test_dwt97_ict_roofline_on_a_synthetic_trace():
+    """The float route's bytes a frame (five levels of 1080p RGB, 8 B a
+    sample of each level's output; the ICT 15 B a pixel) over its kernels'
+    summed time; the integer and 5/3 kernels and copies are not its."""
+    from htbench import float97_bytes
+    lift = "void (anonymous namespace)::lift_tiles<(anonymous " \
+        "namespace)::Lift97f>(Launch, float const*, float*)"
+    ict = "void (anonymous namespace)::ict_kernel<(anonymous " \
+        "namespace)::IctFloat, unsigned char>(Args)"
+    other = ("void (anonymous namespace)::lift_tiles<(anonymous "
+             "namespace)::Lift97i>(Launch, int const*, int*)",
+             "Memcpy HtoD (Pinned -> Device)")
+    ops = [(lift, 1.1, 1.1002), (lift, 1.2, 1.2001), (ict, 1.3, 1.3001),
+           (other[0], 1.4, 1.45), (other[1], 1.5, 1.6),
+           (ict, 0.9, 1.0001)]            # 0.1 ms inside the window
+    t = _lossy_window(ops)
+    config = spec.load_cell("c2-batch8-broadcast").config
+    per_frame = 8 * 3 * sum(h * w for h, w in (
+        (1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)))
+    assert float97_bytes.dwt97_bytes(config) == per_frame
+    assert float97_bytes.ict_bytes(config) == 1080 * 1920 * 15
+    want = 100 * (per_frame + 1080 * 1920 * 15) * 8 / 3.35e12 / 5e-4
+    read = spec.module("layers", "dwt97_ict_roofline").read
+    assert read(t) == pytest.approx(want)
+    assert 0 < read(t) < 100
+
+
+def test_dwt97_ict_roofline_is_none_off_the_float_route():
+    read = spec.module("layers", "dwt97_ict_roofline").read
+    t = _lossy_window([("Memcpy DtoH (Device -> Pinned)", 1.1, 1.2)])
+    assert read(t) is None                     # neither kernel ran
+    lift = "lift_tiles<(anonymous namespace)::Lift97f>"
+    t = _lossy_window([(lift, 1.1, 1.2)], bw=None)
+    assert read(t) is None                     # no peak for this card
+    t = tracing.TraceData(t0=1.0, t1=2.0, frames=4, device_ops=[
+        (lift, 1.1, 1.2)], output_bytes=512 * 512 * 4,
+        hbm_bytes_per_s=3.35e12)
+    assert read(t) is None                     # a lossless gray frame
+
+
+def test_dwt97_ict_roofline_raises_where_two_configurations_match(
+        tmp_path, monkeypatch):
+    """Two float 9/7 configurations of one frame size cannot be told
+    apart from the trace data: the reader fails loudly, not None."""
+    from htbench import float97_bytes
+    with open(spec.BENCHMARK) as f:
+        bench = json.load(f)
+    c2 = next(c for c in bench["configs"] if c["name"] == "hd1080-rgb8-ict97")
+    bench["configs"].append(dict(c2, name="hd1080-twin"))
+    path = tmp_path / "BENCHMARK.json"
+    path.write_text(json.dumps(bench))
+    monkeypatch.setattr(spec, "BENCHMARK", str(path))
+    lift = "lift_tiles<(anonymous namespace)::Lift97f>"
+    with pytest.raises(ValueError, match="hd1080-twin"):
+        spec.module("layers", "dwt97_ict_roofline").read(
+            _lossy_window([(lift, 1.1, 1.2)]))
 
 
 def test_reader_module_answers_only_spans():
