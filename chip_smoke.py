@@ -27,9 +27,10 @@ exits non-zero:
   4. each kernel against its plain PyTorch version on the card, on the
      first c3 frame's real lanes and planes: the HT cleanup's VLC pass
      (records exact), its MagSgn pass (on the same records) and the pair
-     against ``cleanup_ref``, then RCT; each with its time by CUDA
-     events, its bound from the bytes these inputs need, and the share
-     of the bound;
+     against ``cleanup_ref``, then RCT written where the decoder's
+     program writes it (the rgb48le frame: R, G, B interleaved, << 6);
+     each with its time by CUDA events, its bound from the bytes these
+     inputs need, and the share of the bound;
   5. the c3 main path: launch counts reset, three frames decoded, counts
      read; every frame must equal its source in the negotiated pixel
      format (rgb48le, samples << 6), the cleanup kernels, RCT and
@@ -39,10 +40,12 @@ exits non-zero:
      few repetitions;
   6. the c2 irreversible path: the four frames encoded with the port's
      encoder (two seeded natural, two smooth); from the very program and
-     lane arguments ``decode_batch`` runs (``Decoder._v3_program``), ICT
-     against its plain version in both modes on the frames' planes after
-     the inverse DWT, all four in one launch and one frame alone (time,
-     bound, share), and the HT cleanup kernels against their plain
+     lane arguments ``decode_batch`` runs (``Decoder._v3_program``, in
+     the decoder's frame layout: rgb24 interleaved), ICT against its
+     plain version in both modes on the frames' planes after the inverse
+     DWT, written where that program writes them, all four in one launch
+     and one frame alone (time, bound, share), and the HT cleanup
+     kernels against their plain
      versions on the batch's lanes, as in phase 4; the main path
      ``decode_batch`` (float 9/7):
      counts reset, one launch of each kernel for the batch, counts read,
@@ -354,7 +357,10 @@ def _laps(dec, streams, bitexact: bool, dev):
     (host clock, ms for the whole batch)."""
     hdrs = [parse_codestream(d, bitexact=bitexact) for d in streams]
     fg = dec._fast_geom(hdrs[0])
-    (prog,) = [p for k, p in fg.v3_progs.items() if k[0] == len(streams)]
+    # the decoder's own program: (F, ms_class, no_istep, layout)
+    layout = dec._layout(hdrs, fg.geom)
+    (prog,) = [p for (F, _c, _i, lay), p in fg.v3_progs.items()
+               if F == len(streams) and lay == layout]
     laps, val = {}, None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -369,7 +375,7 @@ def _laps(dec, streams, bitexact: bool, dev):
                                                         fg.geom.total)[0]),
             ("upload", lambda a: {k: to_torch(v, dev) for k, v in a.items()}),
             ("device_program", lambda a: prog(**a)),
-            ("fetch", lambda p: p.cpu()),
+            ("fetch", lambda p: (p.cpu(), layout)),
             ("write_frame", lambda p: dec._split_frames(
                 [(h, fg.tiles) for h in hdrs], fg.geom, p))):
         val = step(val)
@@ -513,25 +519,31 @@ def _cleanup_check(args, segments, qw, qh, msc):
                                   + out_bytes)))
 
 
-def _rct_check(planes):
-    """The RCT kernel against its plain version (+ the int16 pack) on one
-    frame's three (H, W) int32 planes after the inverse DWT, on the card.
-    Raises on any difference. Returns the max abs error, the kernel's ms
-    by CUDA events, the plain version's, the bound from the bytes moved,
-    and the chroma plane's (min, max)."""
-    y0, y1, y2 = (c.contiguous() for c in planes)
-    npx = y0.numel()
-    ref = mct_cuda.rct_writeframe_ref(y0, y1, y2, DEPTH)
-    got = mct_cuda.rct_writeframe(y0, y1, y2, DEPTH)
+def _rct_check(prog, outs):
+    """The RCT kernel against its plain version on the three (H, W) int32
+    planes after the inverse DWT of tile 0 of frame 0 of `prog` (its
+    `outs`), on the card: as int32 planes, and written into an output at
+    their dests of the program's frame layout (R, G, B interleaved and
+    shifted in ``rgb48le``), the launch the program makes. Raises on any
+    difference. Returns the max abs error, that launch's ms by CUDA
+    events, the plain version's, the bound from the bytes moved, and the
+    chroma plane's (min, max)."""
+    idxs = prog.tci[0][:3]
+    y0, y1, y2 = (outs[i].contiguous() for i in idxs)
+    npx, cbps = y0.numel(), prog.cbps
+    ref = mct_cuda.rct_writeframe_ref(y0, y1, y2, cbps)
+    got = mct_cuda.rct_writeframe(y0, y1, y2, cbps)
     err = max(int((a - b).abs().max()) for a, b in zip(got, ref))
-    packed_k = torch.empty(3 * npx, dtype=torch.int16, device=y0.device)
-    packed_r = torch.empty_like(packed_k)
-    mct_cuda.rct_writeframe(y0, y1, y2, DEPTH, out=packed_k)
+    dests = [prog.frame_layout.dests[i] for i in idxs]
+    # one sentinel in both, so that a sample written where no dest puts
+    # one differs too
+    packed_k = torch.full((prog.frame_layout.frame_size,), 7,
+                          dtype=prog.out_dtype, device=y0.device)
+    packed_r = packed_k.clone()
+    mct_cuda.rct_writeframe(y0, y1, y2, cbps, out=packed_k, dests=dests)
 
     def plain():
-        for i, c in enumerate(mct_cuda.rct_writeframe_ref(y0, y1, y2, DEPTH)):
-            packed_r[i * npx:(i + 1) * npx] = \
-                mct_cuda.narrow(c, torch.int16).reshape(-1)
+        mct_cuda.rct_writeframe_ref(y0, y1, y2, cbps, packed_r, dests)
 
     plain()
     err = max(err, int((packed_k.to(torch.int32)
@@ -541,9 +553,9 @@ def _rct_check(planes):
                            f"(max abs err {err})")
     return dict(max_abs_err=err,
                 ms=_cuda_ms(lambda: mct_cuda.rct_writeframe(
-                    y0, y1, y2, DEPTH, out=packed_k), 20, True),
+                    y0, y1, y2, cbps, out=packed_k, dests=dests), 20, True),
                 plain_ms=_cuda_ms(plain, 20),
-                bound_ms=_bound(3 * npx * 4 + packed_k.numel() * 2),
+                bound_ms=_bound(3 * npx * (4 + packed_k.element_size())),
                 chroma=(int(y1.min()), int(y1.max())))
 
 
@@ -627,7 +639,7 @@ def _v2_program(dec, streams, dev=None):
         fg, [FP.parse_frame_flat(h, fg) for h in hdrs])
     up = lambda v: to_torch(v, dev) if isinstance(v, np.ndarray) else v
     prog = DEC.bucket_program(tuple(map(tuple, shapes)), geom.key(),
-                              dec._wp(geom.cbps))
+                              dec._layout(hdrs, fg.geom).replicate(len(hdrs)))
     if dev is None:
         return prog, None
     return prog, (up(pf_idx), up(pf_val),
@@ -659,19 +671,20 @@ def _host_diff(frame, data, bitexact: bool):
 
 
 def _ict_check(dec, streams, transform):
-    """ICT kernel against its plain version (+ pack) on the c2 frames'
-    planes after the inverse DWT, taken from the very program and lane
-    arguments that ``dec.decode_batch(streams)`` runs: at that path's
-    shape (one launch for the F frames) and at ``decode_stream``'s (one
-    launch for one frame). Returns (the numbers, ms by CUDA events and
-    bounds from the bytes moved; the program's lane arguments, its
-    decoded lanes' (lcup, pcup) and the program itself, for the cleanup
-    check)."""
+    """ICT kernel against its plain version on the c2 frames' planes after
+    the inverse DWT, taken from the very program and lane arguments that
+    ``dec.decode_batch(streams)`` runs, written where that program writes
+    them (its frame layout: R, G, B interleaved in ``rgb24``): at that
+    path's shape (one launch for the F frames) and at ``decode_stream``'s
+    (one launch for one frame); also as int32 planes. Returns (the
+    numbers, ms by CUDA events and bounds from the bytes moved; the
+    program's lane arguments, its decoded lanes' (lcup, pcup) and the
+    program itself, for the cleanup check)."""
     hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
     fg = dec._fast_geom(hdrs[0])
     cols_list = [FP.parse_frame_flat(h, fg) for h in hdrs]
-    prog, args = dec._v3_program(fg, cols_list)
-    F, dev = prog.frames, args["msw"].device
+    prog, args = dec._v3_program(fg, cols_list, dec._layout(hdrs, fg.geom))
+    F, dev, cbps = prog.frames, args["msw"].device, prog.cbps
     if not prog.band_direct or prog.transform != transform:
         raise RuntimeError("c2 frames: expected the band-direct "
                            f"{transform} program")
@@ -679,42 +692,46 @@ def _ict_check(dec, streams, transform):
     ys = [tuple(c.contiguous() for c in outs[3 * f:3 * f + 3])
           for f in range(F)]
     npx = ys[0][0].numel()
-    refs = [mct_cuda.ict_writeframe_ref(*y, 8, transform) for y in ys]
-    pairs = list(zip(mct_cuda.ict_writeframe(ys, 8, transform), refs)) \
-        + list(zip(mct_cuda.ict_writeframe(ys[:1], 8, transform), refs))
+    refs = [mct_cuda.ict_writeframe_ref(*y, cbps, transform) for y in ys]
+    pairs = list(zip(mct_cuda.ict_writeframe(ys, cbps, transform), refs)) \
+        + list(zip(mct_cuda.ict_writeframe(ys[:1], cbps, transform), refs))
     err = max(int((a - b).abs().max())
               for got, ref in pairs for a, b in zip(got, ref))
-    packed_k = torch.empty(F * 3 * npx, dtype=torch.uint8, device=dev)
-    packed_r = torch.empty_like(packed_k)
-    one_k = torch.zeros(3 * npx, dtype=torch.uint8, device=dev)
-    mct_cuda.ict_writeframe(ys, 8, transform, out=packed_k)
-    mct_cuda.ict_writeframe(ys[:1], 8, transform, out=one_k)
+    lay = prog.frame_layout
+    fs, dests = lay.frame_size, [lay.dests[i] for i in prog.tci[0][:3]]
+    # one sentinel in all three outputs, so that a sample written where
+    # no dest puts one differs too
+    packed_k = torch.full((F * fs,), 7, dtype=prog.out_dtype, device=dev)
+    packed_r = packed_k.clone()
+    one_k = torch.full((fs,), 7, dtype=prog.out_dtype, device=dev)
+    write = lambda frames, out: mct_cuda.ict_writeframe(
+        frames, cbps, transform, out=out, frame_stride=fs, dests=dests)
+    write(ys, packed_k)
+    write(ys[:1], one_k)
 
     def plain():
         for f, y in enumerate(ys):
-            for i, c in enumerate(mct_cuda.ict_writeframe_ref(*y, 8,
-                                                              transform)):
-                pos = (3 * f + i) * npx
-                packed_r[pos:pos + npx] = \
-                    mct_cuda.narrow(c, torch.uint8).reshape(-1)
+            mct_cuda.ict_writeframe_ref(
+                *y, cbps, transform, packed_r,
+                [(d + f * fs, rs, cs, sh) for d, rs, cs, sh in dests])
 
     plain()
     i32 = lambda t: t.to(torch.int32)
     err = max(err, int((i32(packed_k) - i32(packed_r)).abs().max()),
-              int((i32(one_k) - i32(packed_r[:3 * npx])).abs().max()))
+              int((i32(one_k) - i32(packed_r[:fs])).abs().max()))
     if err:
         raise RuntimeError(f"ICT kernel ({ys[0][0].dtype}) differs from its "
                            f"plain version (max abs err {err})")
-    # three 4-byte planes read and the uint8 samples written, per frame
+    # three 4-byte planes read and the narrow samples written, per frame
+    px_bytes = 3 * npx * (4 + packed_k.element_size())
     nums = dict(
         frames=F, max_abs_err=err, dtype=str(ys[0][0].dtype),
-        ms=_cuda_ms(lambda: mct_cuda.ict_writeframe(
-            ys, 8, transform, out=packed_k), 20, True),
+        layout=lay.fmt.name if lay.fmt else "identity",
+        ms=_cuda_ms(lambda: write(ys, packed_k), 20, True),
         plain_ms=_cuda_ms(plain, 5),
-        bound_ms=_bound(F * (3 * npx * 4 + 3 * npx)),
-        ms_one_frame=_cuda_ms(lambda: mct_cuda.ict_writeframe(
-            ys[:1], 8, transform, out=one_k), 20, True),
-        bound_ms_one_frame=_bound(3 * npx * 4 + 3 * npx),
+        bound_ms=_bound(F * px_bytes),
+        ms_one_frame=_cuda_ms(lambda: write(ys[:1], one_k), 20, True),
+        bound_ms_one_frame=_bound(px_bytes),
         program_ms_per_frame=_cuda_ms(lambda: prog(**args), 3) / F)
     return nums, args, _v3_segments([FP.build_v3_frame(fg, c)
                                      for c in cols_list]), prog
@@ -864,7 +881,8 @@ def _phase11(dev, c3_stream, c2_streams):
         hdrs = [dec._parse(d) for d in streams]
         fg = dec._fast_geom(hdrs[0])
         prog, args = dec._v3_program(fg, [FP.parse_frame_flat(h, fg)
-                                          for h in hdrs])
+                                          for h in hdrs],
+                                     dec._layout(hdrs, fg.geom))
         if not prog.band_direct:
             raise RuntimeError(f"phase 11 {name}: not a band-direct program")
         F = prog.frames
@@ -1064,7 +1082,7 @@ def _program_check(prog, args, frames: int, reps: int = 0):
         outs = [views[ll] if last is None else plan.view(scratch, last)
                 for ll, last in zip(prog._ll, plan.last)]
     planes, offs = prog.writes(outs)
-    n_out = prog.frames * prog.total + 1
+    n_out = prog.frames * prog.frame_layout.frame_size + 1
     pk = torch.zeros(n_out, dtype=prog.out_dtype, device=buf.device)
     pr = torch.zeros_like(pk)
     win = (planes, prog.cbps, pk, offs)
@@ -1165,7 +1183,8 @@ def _phase12(dev, c4_data):
             hdrs = [dec._parse(d) for d in streams]
             fg = dec._fast_geom(hdrs[0])
             prog, args = dec._v3_program(fg, [FP.parse_frame_flat(h, fg)
-                                              for h in hdrs])
+                                              for h in hdrs],
+                                         dec._layout(hdrs, fg.geom))
             if prog.band_direct:
                 raise RuntimeError("phase 12 crop_v3: no level under 8x8")
         else:
@@ -1253,7 +1272,8 @@ def _phase6(dev):
                                  ("int", dec_i, DWT97_INT)):
         m, args, segs, prog = _ict_check(dec, streams, transform)
         modes[name] = m
-        print(f"phase 6   ict {name} mode == ict_writeframe_ref + pack on "
+        print(f"phase 6   ict {name} mode == ict_writeframe_ref in the "
+              f"{m['layout']} layout on "
               f"{m['frames']} frames of 3 x {C2_H}x{C2_W} {m['dtype']} "
               f"planes, one launch: kernel {m['ms']:.4f} ms, plain "
               f"{m['plain_ms']:.3f} ms, bound {m['bound_ms']:.4f} ms "
@@ -1444,7 +1464,7 @@ def _object_buckets(dec, data):
     up = lambda v: to_torch(v, dec.device) if isinstance(v, np.ndarray) \
         else v
     prog = DEC.bucket_program(tuple(map(tuple, shapes)), geom.key(),
-                              dec._wp(geom.cbps))
+                              dec._layout([hdr], geom))
     return ("v2", shapes, bargs, segs, prog, (
         up(pf_idx), up(pf_val), [{k: up(v) for k, v in a.items()}
                                  for a in bargs]))
@@ -1543,10 +1563,13 @@ def _laps_v2(dec, streams, dev):
     hdrs = [parse_codestream(d, bitexact=True) for d in streams]
     fg = dec._fast_geom(hdrs[0])
 
+    layout = dec._layout(hdrs, fg.geom)
+
     def upload(v2):
         gm, (shapes, bargs, pf_idx, pf_val), _accum = v2
         up = lambda v: to_torch(v, dev) if isinstance(v, np.ndarray) else v
-        return (DEC.bucket_program(tuple(map(tuple, shapes)), gm.key()),
+        return (DEC.bucket_program(tuple(map(tuple, shapes)), gm.key(),
+                                   layout.replicate(len(hdrs))),
                 up(pf_idx), up(pf_val),
                 [{k: up(v) for k, v in a.items()} for a in bargs])
 
@@ -1561,7 +1584,7 @@ def _laps_v2(dec, streams, dev):
             ("v2_args", lambda cols: dec._v2_args(fg, cols)),
             ("upload", upload),
             ("device_program", lambda u: u[0](*u[1:])),
-            ("fetch", lambda p: p.cpu()),
+            ("fetch", lambda p: (p.cpu(), layout)),
             ("write_frame", lambda p: dec._split_frames(
                 [(h, fg.tiles) for h in hdrs], fg.geom, p))):
         val = step(val)
@@ -1592,17 +1615,23 @@ def _need_launched(counts, names, what):
 
 def _batch_output(dec, streams):
     """The packed output of the program ``dec.decode_batch(streams)`` runs
-    (the V3Program, else the BucketProgram on ``_v2_args``), on the card;
-    the sample count it holds and their bits."""
+    (the V3Program, else the BucketProgram on ``_v2_args``) in the
+    identity layout, the tile-component samples that the wire pack takes
+    (with the decoder's wire pack, that very program), on the card; that
+    layout, the sample count the output holds and their bits."""
     hdrs = [parse_codestream(d, bitexact=dec.bitexact) for d in streams]
     fg = dec._fast_geom(hdrs[0])
     cols = [FP.parse_frame_flat(h, fg) for h in hdrs]
-    v3 = dec._v3_program(fg, cols)
+    layout = ASM.FrameLayout.identity(fg.geom.key(),
+                                      wire_pack=dec._wp(fg.geom.cbps))
+    n = len(streams) * fg.geom.total
+    v3 = dec._v3_program(fg, cols, layout)
     if v3 is not None:
         prog, args = v3
-        return prog(**args), len(streams) * fg.geom.total, fg.geom.cbps
+        return prog(**args), layout, n, fg.geom.cbps
     geom, fin, _accum = dec._v2_args(fg, cols)
-    return dec._dispatch_args(geom, *fin), geom.total, geom.cbps
+    return (dec._dispatch_args(geom, *fin, layout.replicate(len(streams))),
+            layout, n, geom.cbps)
 
 
 def _fetch_unpack(dec, streams, reps: int = 3):
@@ -1612,14 +1641,14 @@ def _fetch_unpack(dec, streams, reps: int = 3):
     copy alone into a page-locked buffer reused across reps, and of the
     wire unpack (``unpack_words``; 0 without the pack); the bytes
     fetched."""
-    packed, n, cbps = _batch_output(dec, streams)
+    packed, layout, n, cbps = _batch_output(dec, streams)
     torch.cuda.synchronize()
     fetch, copy, unpack = [], [], []
     pinned = torch.empty(packed.shape, dtype=packed.dtype,
                          pin_memory=packed.is_cuda)
     for _ in range(reps):
         t0 = time.perf_counter()
-        host = dec._start_fetch(packed)()
+        host, _layout = dec._start_fetch(packed, layout)()
         t1 = time.perf_counter()
         pinned.copy_(packed)
         t2 = time.perf_counter()
@@ -1904,7 +1933,7 @@ def _phase8(dev, natural_src, natural_stream):
     # decode_stream launch) and of the c4 batch with the pack (phase 7).
     # A smaller size is timed on the batch's consecutive runs in turn, so
     # that no launch reads an input the one before left in the 50 MB L2
-    packed16, n, _cbps = _batch_output(plain_dec, streams)
+    packed16, _layout, n, _cbps = _batch_output(plain_dec, streams)
     if int(packed16[-1]) != 1:
         raise RuntimeError("c5 decode_batch: the ok flag is clear")
     sizes = {}
@@ -2070,8 +2099,9 @@ def _phase9(dev, c5_data, c4_data, single_ms):
     plan, why = dec._shard_plan(streams, 2)
     if plan is None:
         raise RuntimeError(f"c5 batch cannot shard: {why}")
-    _hdrs, fg, frames, Fl, msc = plan
-    prog, args = dec._v3_shard(fg, frames[:Fl], msc, dev)
+    hdrs, fg, frames, Fl, msc = plan
+    prog, args = dec._v3_shard(fg, frames[:Fl], msc, dev,
+                               dec._layout(hdrs, fg.geom))
     clean = _cleanup_check(args, _v3_segments(frames[:Fl]), prog.qw, prog.qh,
                            msc)
     ln = clean["lanes"]
@@ -2080,9 +2110,10 @@ def _phase9(dev, c5_data, c4_data, single_ms):
           f"{'/'.join(map(str, ln['W']))})")
     _print_cleanup("phase 9", clean)
     outs, _ok = prog.decode_planes(**args)
-    clean["rct"] = _rct_check(outs[:3])
+    clean["rct"] = _rct_check(prog, outs)
     r = clean["rct"]
-    print(f"phase 9   rct kernel == rct_writeframe_ref + pack on shard 0's "
+    print(f"phase 9   rct kernel == rct_writeframe_ref in the "
+          f"{prog.frame_layout.fmt.name} layout on shard 0's "
           f"first frame: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
           f"ms, bound {r['bound_ms']:.4f} ms (bytes), "
           f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
@@ -2414,7 +2445,7 @@ def _stream_lanes(dec, data):
         fg = dec._fast_geom(hdr)
         cols = FP.parse_frame_flat(hdr, fg)
         if cols is not None:
-            v3 = dec._v3_program(fg, [cols])
+            v3 = dec._v3_program(fg, [cols], dec._layout([hdr], fg.geom))
             if v3 is not None:
                 return ("v3", *v3,
                         _v3_segments([FP.build_v3_frame(fg, cols)]))
@@ -2498,7 +2529,7 @@ def _phase10(dev):
             if case.launches[2]:
                 outs, _ok = prog.decode_planes(**args)
                 errs["rct"] = max(errs["rct"],
-                                  _rct_check(outs[:3])["max_abs_err"])
+                                  _rct_check(prog, outs)["max_abs_err"])
                 del outs
         else:
             _kind, shapes, bargs, segs, prog, args = sl
@@ -2517,7 +2548,7 @@ def _phase10(dev):
             nums = _ict_check(dec, [data], transform)[0]
             errs["ict"] = max(errs["ict"], nums["max_abs_err"])
         if case.launches[4]:
-            packed16, n, cbps = _batch_output(
+            packed16, _layout, n, cbps = _batch_output(
                 Decoder(device=dev, bitexact=dec.bitexact), [data])
             words = wirepack.pack_words(packed16, cbps)
             ref = wirepack.pack_words_ref(packed16[:n], cbps)
@@ -2538,7 +2569,7 @@ def _phase10(dev):
     hdrs = [dec._parse(d) for d in batch]
     fg = dec._fast_geom(hdrs[0])
     cols = [FP.parse_frame_flat(h, fg) for h in hdrs]
-    prog, args = dec._v3_program(fg, cols)
+    prog, args = dec._v3_program(fg, cols, dec._layout(hdrs, fg.geom))
     inert = int((args["qws"] == 0).sum())
     c = _cleanup_check(args, _v3_segments([FP.build_v3_frame(fg, x)
                                            for x in cols]),
@@ -2685,15 +2716,18 @@ def main(argv=None) -> int:
           f"{ONE_THREAD_CLEANUP_MS} ms for the earlier "
           "one-thread-per-codeblock kernel")
 
+    # in the layout the decoder picks: rgb48le, R, G, B interleaved << 6
     prog = V3Program(plan, fg.geom.key(), qw=qw, qh=qh, ms_class=msc,
                      n_pad=fg.ncblks, frames=1,
+                     layout=DEC.frame_layout([hdr], fg.geom),
                      no_istep=bool(np.all(args_np["istep"] == 32768)))
     outs, _ok = prog.decode_planes(**args)
-    rct = _rct_check(outs[:3])
+    rct = _rct_check(prog, outs)
     rct_err, rct_ms = rct["max_abs_err"], rct["ms"]
     rct_plain_ms, rct_bound = rct["plain_ms"], rct["bound_ms"]
     program_ms = _cuda_ms(lambda: prog(**args), 5)
-    print(f"phase 4 rct kernel == rct_writeframe_ref + pack on 3 x {H}x{W} "
+    print(f"phase 4 rct kernel == rct_writeframe_ref in the "
+          f"{prog.frame_layout.fmt.name} layout on 3 x {H}x{W} "
           f"planes (min {rct['chroma'][0]}, max {rct['chroma'][1]} chroma): "
           f"kernel {rct_ms:.4f} ms, plain {rct_plain_ms:.3f} ms, bound "
           f"{rct_bound:.4f} ms (bytes), {100 * rct_bound / rct_ms:.1f}% of "

@@ -15,15 +15,21 @@ program (counterpart of ``_entropy_stage`` + ``_compiled_assembly`` of
   5. the inverse DWT of every level of every plane (a level under 8 in
      a dimension is a small job, the others band-direct lifting);
   6. RCT (5/3, a launch per frame) or ICT (9/7, one launch for the F
-     frames) + DC shift + clip written straight into the packed output
+     frames) + DC shift + clip written straight into the output
      (ops/mct_cuda), and ``rint`` (float) + DC shift + clip of every
-     plane without MCT in one ``plane_writeframe`` call;
-  7. one packed uint8 / uint16 buffer (uint16 held as int16 bits) whose
-     last element is the all-lanes ok flag; with ``wire_pack`` (9..15-bit
-     samples) that buffer is bit-packed into int32 words holding uint32
-     bits, followed by the flag as one word (ops/wirepack, the kernel
-     ``csrc/wire_pack.cu``), as the reference's ``wire_pack`` option
-     does (assembly.py:436-441, decoder.py:595-601).
+     plane without MCT in one ``plane_writeframe`` call, every sample
+     where the program's ``FrameLayout`` puts it: the frame of the
+     negotiated pixel format (R, G, B interleaved in ``rgb48le``, shifted
+     to 16 bits, each tile at its place), so that the host copies each
+     plane out once; or the tile-component planes back to back
+     (``FrameLayout.identity``);
+  7. one uint8 / uint16 buffer (uint16 held as int16 bits) of the F
+     frames whose last element is the all-lanes ok flag; with
+     ``wire_pack`` (9..15-bit samples, identity layout) that buffer is
+     bit-packed into int32 words holding uint32 bits, followed by the
+     flag as one word (ops/wirepack, the kernel ``csrc/wire_pack.cu``),
+     as the reference's ``wire_pack`` option does (assembly.py:436-441,
+     decoder.py:595-601).
 
 Stages 2-4 are one call of ``ops/coef_cuda.coef_mosaic`` for the F
 frames (the kernel ``csrc/coef_mosaic.cu`` on the card) into one band
@@ -52,6 +58,7 @@ reference's PatchWelcome for such streams before a program is built.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -243,30 +250,80 @@ def _compose_plane(ras, plane: PlanePlan, lane_off: int):
     return p
 
 
+@dataclass(frozen=True)
+class FrameLayout:
+    """Where a program writes each tile-component plane of a frame, and
+    the frame that the host cuts out of its output.
+
+    ``dests[i]`` is tile-component plane i's (dst, rs, cs, sh) in its
+    frame (``ops/mct_cuda``: sample (r, c) at dst + r*rs + c*cs, shifted
+    left by sh); frame f starts at f * ``frame_size`` of the output, and
+    the ok flag follows the last frame. ``wide``: uint16 samples (held
+    as int16), else uint8. ``zero``: some sample of a frame plane is
+    written by no tile-component, so the output starts zeroed. ``planes``
+    (offset, rows, columns) of each frame plane, ``fmt``, ``width`` and
+    ``height`` make the ``DecodedFrame``; the program's own
+    tile-component layout (``identity``) has none of them, and may be
+    bit-packed into words (``wire_pack``)."""
+    dests: Tuple[Tuple[int, int, int, int], ...]
+    frame_size: int
+    wide: bool
+    zero: bool = False
+    planes: Tuple[Tuple[int, int, int], ...] = ()
+    fmt: object = None
+    width: int = 0
+    height: int = 0
+    wire_pack: bool = False
+
+    @classmethod
+    def identity(cls, geom_key: Tuple,
+                 wire_pack: bool = False) -> "FrameLayout":
+        """The tile-component planes of geometry `geom_key` (a
+        ``_Geometry.key()``) back to back, unshifted, in a frame of its
+        `total` cbps-bit samples; with `wire_pack`, packed into words."""
+        planes, cbps, total = geom_key[0], geom_key[5], geom_key[6]
+        return cls(tuple((off, pw, 1, 0) for off, _ph, pw in planes),
+                   total, cbps > 8, wire_pack=wire_pack)
+
+    def replicate(self, frames: int) -> "FrameLayout":
+        """The layout of `frames` frames taken as one (the v2 program's
+        frame-replicated geometry)."""
+        fs = self.frame_size
+        return dataclasses.replace(
+            self, frame_size=frames * fs,
+            dests=tuple((f * fs + d, rs, cs, sh) for f in range(frames)
+                        for d, rs, cs, sh in self.dests))
+
+
 def _border(border):
     return [[border[0][0], border[0][1]], [border[1][0], border[1][1]]]
 
 
 class _Program:
     """What the v3 and the v2 programs share: the geometry and the MCT /
-    DC shift / clip / pack tail (with `wire_pack`, the bit-packed words
-    of 8 < cbps < 16 samples)."""
+    DC shift / clip / frame write tail, into `layout` (with its
+    ``wire_pack``, the identity layout's 8 < cbps < 16 samples
+    bit-packed into words)."""
 
     def __init__(self, geom_key: Tuple, frames: int, no_istep: bool,
-                 wire_pack: bool = False):
+                 layout: FrameLayout):
         (planes, borders, ndecs, mct_flags, tci, cbps, total,
          transform) = geom_key
         if cbps > 16:
             raise NotImplementedError(
                 f"{cbps}-bit samples do not fit the uint16 packed output")
-        if wire_pack and not 8 < cbps < 16:
-            raise ValueError(f"wire pack takes 9..15-bit samples, not {cbps}")
-        self.wire_pack = wire_pack
+        if layout.wire_pack and (not 8 < cbps < 16
+                                 or layout.fmt is not None):
+            raise ValueError("wire pack takes 9..15-bit samples in the "
+                             f"identity layout, not {cbps}")
+        if cbps > 8 and not layout.wide:
+            raise ValueError(f"{cbps}-bit samples do not fit uint8")
+        self.wire_pack, self.frame_layout = layout.wire_pack, layout
         self.planes, self.borders, self.ndecs = planes, borders, ndecs
         self.mct_flags, self.tci = mct_flags, tci
         self.cbps, self.total, self.transform = cbps, total, transform
         self.frames, self.no_istep = frames, no_istep
-        self.out_dtype = torch.uint8 if cbps <= 8 else torch.int16
+        self.out_dtype = torch.int16 if layout.wide else torch.uint8
 
     def _mct(self, tileno: int) -> bool:
         """Whether tile `tileno`'s first three planes take RCT / ICT: its
@@ -305,45 +362,48 @@ class _Program:
                 for f in range(self.frames)
                 for i in (idxs[3:] if self._mct(tileno) else idxs)]
 
+    def _dest(self, frame: int, plane: int):
+        """Tile-component plane `plane`'s dest in frame `frame` of the
+        output."""
+        dst, rs, cs, sh = self.frame_layout.dests[plane]
+        return dst + frame * self.frame_layout.frame_size, rs, cs, sh
+
     def writes(self, outs):
-        """(planes, their offsets in the packed buffer) of ``_writes``."""
+        """(planes, their dests in the output) of ``_writes``."""
         n = len(self.planes)
         return ([outs[f * n + i] for f, i in self._writes()],
-                [f * self.total + self.planes[i][0]
-                 for f, i in self._writes()])
+                [self._dest(f, i) for f, i in self._writes()])
 
     def pack(self, outs, ok):
-        """Stages 6-7: MCT / DC shift / clip into the packed buffer. Plane
-        i of frame f starts at f * total + its geometry offset; the ICT of
-        a tile runs for every frame in one call, and every plane without
-        MCT of every frame goes through one ``plane_writeframe`` call.
-        With ``wire_pack`` the buffer, flag included, is packed into
-        words (one launch)."""
-        total, F = self.total, self.frames
-        packed = torch.empty(F * total + 1, dtype=self.out_dtype,
-                             device=ok.device)
+        """Stages 6-7: MCT / DC shift / clip, each sample written where
+        the layout puts it: tile-component plane i of frame f at its dest,
+        f * frame_size on. The ICT of a tile runs for every frame in one
+        call, and every plane without MCT of every frame goes through one
+        ``plane_writeframe`` call. With ``wire_pack`` the buffer, flag
+        included, is packed into words (one launch)."""
+        fs, F = self.frame_layout.frame_size, self.frames
+        alloc = torch.zeros if self.frame_layout.zero else torch.empty
+        packed = alloc(F * fs + 1, dtype=self.out_dtype, device=ok.device)
         nplanes = len(self.planes)
         for tileno, idxs in enumerate(self.tci):
             if not self._mct(tileno):
                 continue
-            base, n = self.planes[idxs[0]][0], outs[idxs[0]].numel()
             ys = [tuple(outs[f * nplanes + i].contiguous()
                         for i in idxs[:3]) for f in range(F)]
             if self.transform == mk.DWT53:
                 for f, y in enumerate(ys):
-                    pos = f * total + base
-                    rct_writeframe(*y, self.cbps,
-                                   out=packed[pos:pos + 3 * n])
+                    rct_writeframe(*y, self.cbps, out=packed,
+                                   dests=[self._dest(f, i)
+                                          for i in idxs[:3]])
             else:
-                ict_writeframe(ys, self.cbps, self.transform,
-                               out=packed[base:(F - 1) * total + base
-                                          + 3 * n],
-                               frame_stride=total)
-        planes, offsets = self.writes(outs)
+                ict_writeframe(ys, self.cbps, self.transform, out=packed,
+                               frame_stride=fs,
+                               dests=[self._dest(0, i) for i in idxs[:3]])
+        planes, dests = self.writes(outs)
         if planes:
-            mct_cuda.plane_writeframe(planes, self.cbps, packed, offsets)
+            mct_cuda.plane_writeframe(planes, self.cbps, packed, dests)
         # ok flag: inert and pad lanes pass trivially
-        packed[F * total:].copy_(ok.all().reshape(1))
+        packed[F * fs:].copy_(ok.all().reshape(1))
         if self.wire_pack:
             return pack_words(packed, self.cbps)
         return packed
@@ -355,7 +415,7 @@ class V3Program(_Program):
     ``prog(msw, melw, vlcw, pLSB, maxbp, ms_lim, mel_lim, qws, qhs, magb,
     istep, scale97, fscale, pf_idx, pf_val) -> packed`` with the argument
     names and layouts of the JAX program (models/fastpath.finish_v3);
-    `packed` is bit-packed words with `wire_pack`.
+    `packed` is bit-packed words with its layout's ``wire_pack``.
     Arrays carry frames * n_pad lanes, frame-major; pf_idx indexes the
     frames' flat lane rasters and its pads point one past their end.
     """
@@ -364,8 +424,8 @@ class V3Program(_Program):
 
     def __init__(self, plan: AssemblyPlan, geom_key: Tuple, qw: int,
                  qh: int, ms_class: int, n_pad: int, frames: int,
-                 no_istep: bool = False, wire_pack: bool = False):
-        super().__init__(geom_key, frames, no_istep, wire_pack)
+                 layout: FrameLayout, no_istep: bool = False):
+        super().__init__(geom_key, frames, no_istep, layout)
         # whether every level of every plane is at least 8x8 (the JAX
         # program's band-direct test, assembly.py:283-286); else the JAX
         # program takes the flat fallback, and here the small levels are
@@ -475,7 +535,7 @@ class BucketProgram(_Program):
     of ``_entropy_stage`` plus ``_compiled_assembly``, decoder.py:426-606).
 
     ``prog(pf_idx, pf_val, bucket_args) -> packed`` (bit-packed words
-    with `wire_pack`); `shapes` holds a
+    with its layout's ``wire_pack``); `shapes` holds a
     ``(qw, qh, w, h, ms_class, refined)`` tuple per bucket and
     `bucket_args` that bucket's lane arrays (models/fastpath.
     finish_buckets, or decoder._bucket_arrays) on the device, ``nreal``
@@ -492,9 +552,8 @@ class BucketProgram(_Program):
 
     COEF_STAGE = "bucket_scatter"
 
-    def __init__(self, shapes, geom_key: Tuple, wire_pack: bool = False):
-        super().__init__(geom_key, frames=1, no_istep=False,
-                         wire_pack=wire_pack)
+    def __init__(self, shapes, geom_key: Tuple, layout: FrameLayout):
+        super().__init__(geom_key, frames=1, no_istep=False, layout=layout)
         self.shapes = tuple(shapes)
         self.dims = [(w, h) for _qw, _qh, w, h, _m, _r in self.shapes]
         self.scatter = coef_cuda.ScatterPlan(

@@ -37,11 +37,18 @@ reach the device as a sparse prefill. ``decode_batch`` runs same-geometry
 frames as one program (either kind); ``bench_resident`` times the
 V3Program only, at full resolution, as in the reference.
 
-``wire_pack=True`` bit-packs 9..15-bit output on the device into words
-(ops/wirepack, the kernel ``csrc/wire_pack.cu``) on both programs, and
-the host unpacks it; off by default, as in the reference. The pixel
-format is negotiated before a program is built, so a stream that no
-format fits raises the reference's PatchWelcome on every route.
+Both programs write each frame in the negotiated pixel format's layout
+and precision (``frame_layout``: R, G, B interleaved in ``rgb48le`` and
+shifted to 16 bits, every tile at its place), worked out once where the
+program is chosen (``Decoder._layout``); it joins the key of the program
+caches and travels with the fetched output, and the host copies each
+plane of each frame out of that buffer once (``_split_frames``). ``wire_pack=True`` bit-packs
+9..15-bit output on the device into words (ops/wirepack, the kernel
+``csrc/wire_pack.cu``) on both programs, in the tile-component layout,
+and the host unpacks it and writes the frame (``_assemble_frame``); off
+by default, as in the reference. The pixel format is negotiated before
+a program is built, so a stream that no format fits raises the
+reference's PatchWelcome on every route.
 ``FFMPEG_HT_TPU_V3=0`` turns the V3Program off in ``decode*`` (the
 reference's switch), so fast-profile streams take the BucketProgram.
 ``decode_frame_cuda`` is the one-shot wrapper.
@@ -63,7 +70,7 @@ import functools
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +83,8 @@ from ffmpeg_ht_tpu_torch.models import assembly as ASM
 from ffmpeg_ht_tpu_torch.models import fastpath as FP
 from ffmpeg_ht_tpu_torch.models import host_decoder
 from ffmpeg_ht_tpu_torch.models import pixfmt as pf
-from ffmpeg_ht_tpu_torch.models.assembly import BucketProgram, V3Program
+from ffmpeg_ht_tpu_torch.models.assembly import (BucketProgram, FrameLayout,
+                                                 V3Program)
 from ffmpeg_ht_tpu_torch.models.fastpath import (_Geometry, finish_v3_numpy,
                                                  to_torch)
 from ffmpeg_ht_tpu_torch.models.host_decoder import DecodedFrame
@@ -352,13 +360,93 @@ def _pow2(n: int, lo: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def bucket_program(shapes: Tuple, geom_key: Tuple,
-                   wire_pack: bool = False) -> BucketProgram:
-    """The BucketProgram of one bucket layout and geometry, built once
-    (its DWT job table with it), as the JAX package caches
+                   layout: FrameLayout) -> BucketProgram:
+    """The BucketProgram of one bucket layout, geometry and frame layout,
+    built once (its DWT job table with it), as the JAX package caches
     ``_compiled_assembly`` (decoder.py:460)."""
     with trace.span("build"):
         trace.count("builds")
-        return BucketProgram(shapes, geom_key, wire_pack=wire_pack)
+        return BucketProgram(shapes, geom_key, layout)
+
+
+def _cdef(hdr) -> List[int]:
+    """The channel definitions write_frame uses, defaults filled in
+    (jpeg2000dec.c:2883-2892)."""
+    siz = hdr.siz
+    cdef = hdr.cdef if hdr.cdef else [-1] * 4
+    if any(c < 0 for c in cdef[:siz.ncomponents]):
+        cdef = [i + 1 for i in range(4)]
+        if siz.ncomponents % 2 == 0:
+            cdef[siz.ncomponents - 1] = 0
+    return cdef
+
+
+def frame_layout(hdrs, geom: _Geometry) -> FrameLayout:
+    """The ``FrameLayout`` that frames of headers `hdrs` on geometry
+    `geom` share: each tile-component plane where write_frame puts it in
+    the negotiated pixel format (``_write_frame_prescaled``), shifted to
+    the output precision. Where the headers' layouts differ, or where
+    write_frame's placement is not one dest a plane (two components into
+    one place, a plane outside its frame plane, a shift past the sample
+    type), the tile-component planes (``FrameLayout.identity``), which
+    ``_assemble_frame`` writes into each frame by its own header."""
+    layouts = set()
+    for hdr in hdrs:
+        siz = hdr.siz
+        fmt = pf.negotiate(siz, hdr.colour_space, siz.rsiz)
+        layouts.add(_frame_layout(
+            fmt, pf.output_precision(fmt, siz.precision),
+            host_decoder._frame_dims(hdr),
+            tuple(_cdef(hdr)[:siz.ncomponents]),
+            tuple((c.depth, c.dx, c.dy) for c in siz.components),
+            (siz.x0, siz.y0), tuple(geom.planes), tuple(geom.borders),
+            tuple(map(tuple, geom.tile_comp_index)), geom.cbps))
+    layout = layouts.pop() if len(layouts) == 1 else None
+    return layout or FrameLayout.identity(geom.key())
+
+
+@functools.lru_cache(maxsize=64)
+def _frame_layout(fmt, precision, dims, cdef, comps, origin, planes,
+                  borders, tci, cbps) -> Optional[FrameLayout]:
+    """``frame_layout`` of one header (its fields as arguments)."""
+    dimx, dimy = dims
+    shapes = pf.frame_shapes(fmt, dimx, dimy)
+    offsets = np.cumsum([0] + [h * w for h, w in shapes]).tolist()
+    bits = 8 * fmt.bytes_per_sample
+    nc = fmt.nb_components
+    dests = [None] * len(planes)
+    owner, area = {}, {}        # (frame plane, channel) -> comp, samples
+    for idxs in tci:
+        for compno, i in enumerate(idxs):
+            depth, dx, dy = comps[compno]
+            sh = precision - depth
+            ox, oy = ceildiv(origin[0], dx), ceildiv(origin[1], dy)
+            (x0, x1), (y0, y1) = borders[i]
+            x0, x1, y0, y1 = x0 - ox, x1 - ox, y0 - oy, y1 - oy
+            if fmt.planar:
+                p, ch, cs = (cdef[compno] - 1 if cdef[compno]
+                             else nc - 1), 0, 1
+            else:
+                p, ch, cs = 0, compno, nc
+            if not (0 <= p < len(shapes) and ch < cs and sh >= 0
+                    and cbps + sh <= bits):
+                return None
+            h, w = shapes[p]
+            if x1 > x0 and y1 > y0:
+                if x0 < 0 or y0 < 0 or y1 > h or x1 * cs > w:
+                    return None
+                area[p, ch] = area.get((p, ch), 0) + (x1 - x0) * (y1 - y0)
+                if owner.setdefault((p, ch), compno) != compno:
+                    return None
+            dests[i] = (offsets[p] + max(y0, 0) * w + max(x0, 0) * cs + ch,
+                        w, cs, sh)
+    zero = any(area.get((p, ch), 0) != h * (w // (1 if fmt.planar else nc))
+               for p, (h, w) in enumerate(shapes)
+               for ch in range(1 if fmt.planar else nc))
+    return FrameLayout(tuple(dests), offsets[-1], bits == 16, zero,
+                       tuple((o, h, w) for o, (h, w) in zip(offsets,
+                                                            shapes)),
+                       fmt, dimx, dimy)
 
 
 def _bucket_arrays(b: _Bucket):
@@ -480,6 +568,15 @@ class Decoder:
     def _wp(self, cbps: int) -> bool:
         return self.wire_pack and 8 < cbps < 16
 
+    def _layout(self, hdrs, geom: _Geometry) -> FrameLayout:
+        """The ``FrameLayout`` a program writes frames `hdrs` of geometry
+        `geom` in, worked out once where the program is chosen and handed
+        to ``_split_frames`` with its output: the identity packed into
+        words where the decoder packs this depth, else ``frame_layout``."""
+        if self._wp(geom.cbps):
+            return FrameLayout.identity(geom.key(), wire_pack=True)
+        return frame_layout(hdrs, geom)
+
     @staticmethod
     def _v3_enabled() -> bool:
         """The reference's switch: FFMPEG_HT_TPU_V3=0 sends fast-profile
@@ -528,8 +625,8 @@ class Decoder:
             hdr = self._parse(data)
             fast = self._fast_launch(hdr)
             if fast is not None:
-                fg, packed = fast
-                fetch = self._start_fetch(packed)
+                fg, packed, layout = fast
+                fetch = self._start_fetch(packed, layout)
                 fin = lambda: self._finish(hdr, fg.tiles, fg.geom, fetch())
             else:
                 tiles = self._parse_tiles(hdr)
@@ -661,7 +758,9 @@ class Decoder:
                                  + [np.zeros(1, prefills[0].dtype)])
 
         gm = _replicate_geometry(g0, F)
-        fetch = self._start_fetch(self._dispatch(gm, merged, prefill))
+        layout = self._layout(hdrs, g0)
+        fetch = self._start_fetch(self._dispatch(
+            gm, merged, prefill, layout.replicate(F)), layout)
         self._dispatched("v2", g0.transform, F)
         return lambda: self._split_frames([(h, t) for h, t, _ in parsed], g0,
                                           fetch())
@@ -690,16 +789,18 @@ class Decoder:
             return None
         self._negotiate(hdrs)
         F = len(hdrs)
-        v3 = self._v3_program(fg, cols_list) if self._v3_enabled() else None
+        layout = self._layout(hdrs, fg.geom)
+        v3 = self._v3_program(fg, cols_list, layout) \
+            if self._v3_enabled() else None
         if v3 is not None:
             prog, args = v3
             packed = prog(**args)
             self._dispatched("v3", fg.geom.transform, F)
         else:
             geom, fin, _accum = self._v2_args(fg, cols_list)
-            packed = self._dispatch_args(geom, *fin)
+            packed = self._dispatch_args(geom, *fin, layout.replicate(F))
             self._dispatched("v2", fg.geom.transform, F)
-        fetch = self._start_fetch(packed)
+        fetch = self._start_fetch(packed, layout)
         return lambda: self._split_frames([(h, fg.tiles) for h in hdrs],
                                           fg.geom, fetch())
 
@@ -754,13 +855,16 @@ class Decoder:
             return None, why
         hdrs, fg, frames, Fl, ms_class = plan
         self._negotiate(hdrs)
+        # one layout for every shard, from every header: a shard's output
+        # is split in the layout its program wrote
+        layout = self._layout(hdrs, fg.geom)
         fetches = []
         for d, dev in enumerate(devices):
             prog, args = self._v3_shard(fg, frames[d * Fl:(d + 1) * Fl],
-                                        ms_class, dev)
+                                        ms_class, dev, layout)
             with torch.cuda.device(dev) if dev.type == "cuda" \
                     else contextlib.nullcontext():
-                fetches.append(self._start_fetch(prog(**args)))
+                fetches.append(self._start_fetch(prog(**args), layout))
         self._dispatched("v3", fg.geom.transform, len(hdrs))
 
         def finish():
@@ -795,7 +899,7 @@ class Decoder:
             raise ValueError("streams not v3-capable (fast profile, one "
                              "shared geometry, native parse)")
         self._negotiate(hdrs)
-        v3 = self._v3_program(fg, cols_list, wire_pack=False)
+        v3 = self._v3_program(fg, cols_list, frame_layout(hdrs, fg.geom))
         if v3 is None:
             raise ValueError("streams not v3-capable (assembly plan, no "
                              "refinement lanes, maxbp <= 25)")
@@ -816,10 +920,10 @@ class Decoder:
                 "frames_merged": F}
 
     def _fast_launch(self, hdr):
-        """(fg, packed) for a fast-profile stream: the V3Program, else the
-        BucketProgram on ``build_bucket_args`` lanes (decoder.py:1054-1072);
-        None when the stream leaves the flat fast lane (the object path
-        decides then)."""
+        """(fg, packed, its FrameLayout) for a fast-profile stream: the
+        V3Program, else the BucketProgram on ``build_bucket_args`` lanes
+        (decoder.py:1054-1072); None when the stream leaves the flat fast
+        lane (the object path decides then)."""
         if self.max_layers or not FP.fast_profile(hdr):
             return None
         fg = self._fast_geom(hdr)
@@ -827,15 +931,17 @@ class Decoder:
         if cols is None:
             return None
         self._negotiate([hdr])
-        v3 = self._v3_program(fg, [cols]) if self._v3_enabled() else None
+        layout = self._layout([hdr], fg.geom)
+        v3 = self._v3_program(fg, [cols], layout) \
+            if self._v3_enabled() else None
         if v3 is not None:
             prog, args = v3
             self._dispatched("v3", fg.geom.transform, 1)
-            return fg, prog(**args)
+            return fg, prog(**args), layout
         geom, fin, _accum = self._v2_args(fg, [cols])
-        packed = self._dispatch_args(geom, *fin)
+        packed = self._dispatch_args(geom, *fin, layout)
         self._dispatched("v2", fg.geom.transform, 1)
-        return fg, packed
+        return fg, packed, layout
 
     def _v2_args(self, fg, cols_list):
         """The v2 counterpart of ``_v3_program`` for same-geometry frames
@@ -851,12 +957,11 @@ class Decoder:
         return (_replicate_geometry(fg.geom, F),
                 FP.finish_buckets(accum, F * total), accum)
 
-    def _v3_program(self, fg, cols_list, wire_pack=None):
+    def _v3_program(self, fg, cols_list, layout: FrameLayout):
         """(the cached V3Program for these frames, its arguments on the
         device), or None when they need the v2 path: no assembly plan, no
         codeblocks, refinement lanes or a lane with maxbp > 25. The
-        program packs its output into words when `wire_pack` (default:
-        the decoder's choice for this depth) is true."""
+        program writes its frames in `layout` (``_layout``)."""
         if self._plan(fg) is False or fg.ncblks == 0:
             return None
         frames = []
@@ -868,17 +973,17 @@ class Decoder:
         ms_class = _ms_class(frames)
         if ms_class is None:
             return None
-        return self._v3_shard(fg, frames, ms_class, self.device, wire_pack)
+        return self._v3_shard(fg, frames, ms_class, self.device, layout)
 
-    def _v3_shard(self, fg, frames, ms_class: int, device, wire_pack=None):
+    def _v3_shard(self, fg, frames, ms_class: int, device,
+                  layout: FrameLayout):
         """(the V3Program for ``build_v3_frame`` columns `frames` at
         `ms_class`, cached in ``fg.v3_progs`` by frame count, class,
-        identity step and pack; its arguments on `device`)."""
+        identity step and frame layout; its arguments on `device`)."""
         args, F = finish_v3_numpy(fg, frames, fg.geom.total)
         # lossless frames: istep is uniformly the identity 32768
         no_istep = bool(np.all(args["istep"] == 32768))
-        wp = self._wp(fg.geom.cbps) if wire_pack is None else wire_pack
-        key = (F, ms_class, no_istep, wp)
+        key = (F, ms_class, no_istep, layout)
         prog = fg.v3_progs.get(key)
         if prog is None:
             with trace.span("build"):
@@ -886,15 +991,17 @@ class Decoder:
                 prog = V3Program(fg.v3_plan, fg.geom.key(),
                                  qw=fg.v3_plan.bw // 2,
                                  qh=fg.v3_plan.bh // 2, ms_class=ms_class,
-                                 n_pad=fg.ncblks, frames=F,
-                                 no_istep=no_istep, wire_pack=wp)
+                                 n_pad=fg.ncblks, frames=F, layout=layout,
+                                 no_istep=no_istep)
             fg.v3_progs[key] = prog
         return prog, {k: to_torch(v, device) for k, v in args.items()}
 
-    def _dispatch(self, geom: _Geometry, buckets, prefill):
-        """Pack the object path's buckets and run the BucketProgram (no
-        host sync; decoder.py:938-970): lane arrays per bucket in key
-        order, and the host-decoded samples as a sparse prefill."""
+    def _dispatch(self, geom: _Geometry, buckets, prefill,
+                  layout: FrameLayout):
+        """Pack the object path's buckets and run the BucketProgram into
+        frame layout `layout` (no host sync; decoder.py:938-970): lane
+        arrays per bucket in key order, and the host-decoded samples as a
+        sparse prefill."""
         keys = sorted(buckets.keys())
         shapes, bucket_args = [], []
         with trace.span("lane_args"):
@@ -915,32 +1022,30 @@ class Decoder:
             else:
                 pf_idx = np.array([geom.total], np.int32)
                 pf_val = np.zeros(1, prefill.dtype)
-        return self._dispatch_args(geom, shapes, bucket_args, pf_idx, pf_val)
+        return self._dispatch_args(geom, shapes, bucket_args, pf_idx, pf_val,
+                                   layout)
 
     def _dispatch_args(self, geom: _Geometry, shapes, bucket_args, pf_idx,
-                       pf_val):
-        """The BucketProgram on prepacked numpy bucket arrays: upload, then
-        entropy + assembly (decoder.py:972-981)."""
+                       pf_val, layout: FrameLayout):
+        """The BucketProgram on prepacked numpy bucket arrays, writing
+        frame layout `layout`: upload, then entropy + assembly
+        (decoder.py:972-981)."""
         up = lambda v: to_torch(v, self.device) \
             if isinstance(v, np.ndarray) else v
-        prog = bucket_program(tuple(map(tuple, shapes)), geom.key(),
-                              self._wp(geom.cbps))
+        prog = bucket_program(tuple(map(tuple, shapes)), geom.key(), layout)
         return prog(up(pf_idx), up(pf_val),
                     [{k: up(v) for k, v in a.items()} for a in bucket_args])
 
-    def _launch(self, hdr, tiles):
-        """Object path: bucket the codeblocks, upload, dispatch; no host
-        sync. Returns (geom, packed output on the device)."""
+    def _device_decode(self, hdr, tiles):
+        """The object path of ``decode_async``: bucket the codeblocks,
+        upload, dispatch (no host sync), queue the fetch and return the
+        callable that finishes the frame."""
         self._negotiate([hdr])
         with trace.span("lane_cols"):
             geom, buckets, prefill = _build_batch(hdr, tiles)
-        return geom, self._dispatch(geom, buckets, prefill)
-
-    def _device_decode(self, hdr, tiles):
-        """The object path of ``decode_async``: launch, queue the fetch and
-        return the callable that finishes the frame."""
-        geom, packed = self._launch(hdr, tiles)
-        fetch = self._start_fetch(packed)
+        layout = self._layout([hdr], geom)
+        fetch = self._start_fetch(self._dispatch(geom, buckets, prefill,
+                                                 layout), layout)
         self._dispatched("v2", geom.transform, 1)
         return lambda: self._finish(hdr, tiles, geom, fetch())
 
@@ -955,13 +1060,15 @@ class Decoder:
         if transform == mk.DWT97:
             trace.count("float97_frames", frames)
 
-    def _start_fetch(self, packed):
-        """Queue the device-to-host copy of the packed output behind the
-        decode; the returned callable waits for it (span ``fetch``)."""
+    def _start_fetch(self, packed, layout: FrameLayout):
+        """Queue the device-to-host copy of the packed output, which a
+        program wrote in `layout`, behind the decode; the returned callable
+        waits for it (span ``fetch``) and gives (the host copy, `layout`),
+        what ``_split_frames`` takes."""
         if packed.device.type != "cuda":
             def fetch():
                 with trace.span("fetch"):
-                    return packed
+                    return packed, layout
             return fetch
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
@@ -971,7 +1078,7 @@ class Decoder:
         def fetch():
             with trace.span("fetch"):
                 done.synchronize()
-            return host
+            return host, layout
         return fetch
 
     def _finish(self, hdr, tiles, geom, packed) -> DecodedFrame:
@@ -979,13 +1086,21 @@ class Decoder:
 
     @trace.timed("write")
     def _split_frames(self, frames, geom, packed) -> List[DecodedFrame]:
-        """The packed output of a program whose first len(frames) frames
-        are the (hdr, tiles) frames of one geometry -> DecodedFrames (a
-        wire-packed output is unpacked first, decoder.py:632-642); raises
+        """`packed` = (the output of a program whose first len(frames)
+        frames are the (hdr, tiles) frames of one geometry, the per-frame
+        ``FrameLayout`` that program wrote) -> DecodedFrames; raises
         InvalidData when the ok flag, the buffer's last element, is
-        clear. Frames after them (a shard's pad frames) are dropped."""
-        buf = packed.numpy()
-        if buf.dtype == np.int32:            # wire words, uint32 bits
+        clear. Frames after them (a shard's pad frames) are dropped.
+
+        In a pixel format's layout each plane of each frame is one copy
+        out of the buffer into memory of its own (a frame never holds the
+        fetched, page-locked buffer; counter ``device_layout_frames``).
+        A wire-packed output is unpacked first (decoder.py:632-642), and
+        an output in the identity layout is written into frames by
+        ``_assemble_frame``."""
+        buf, layout = packed
+        buf = buf.numpy()
+        if layout.wire_pack:                 # wire words, uint32 bits
             words = buf.view(np.uint32)
             n = len(frames) * geom.total
             buf = np.empty(n + 1, np.uint16)
@@ -995,6 +1110,21 @@ class Decoder:
             buf = buf.view(np.uint16)
         if buf[-1] == 0:
             raise InvalidData("invalid HT codestream (U bound violated)")
+        if layout.fmt is None:
+            return self._assembled_frames(frames, geom, buf)
+        out = []
+        for f in range(len(frames)):
+            base = f * layout.frame_size
+            out.append(DecodedFrame(
+                fmt=layout.fmt, width=layout.width, height=layout.height,
+                planes=[buf[base + o:base + o + h * w].reshape(h, w).copy()
+                        for o, h, w in layout.planes]))
+        trace.count("device_layout_frames", len(frames))
+        return out
+
+    def _assembled_frames(self, frames, geom, buf) -> List[DecodedFrame]:
+        """The frames of samples `buf` in the identity layout, each
+        written by its own header (``_assemble_frame``)."""
         out = []
         off = 0
         for hdr, tiles in frames:
@@ -1012,11 +1142,7 @@ class Decoder:
         precision = pf.output_precision(fmt, siz.precision)
         dimx, dimy = host_decoder._frame_dims(hdr)
         planes = pf.alloc_frame(fmt, dimx, dimy)
-        cdef = hdr.cdef if hdr.cdef else [-1] * 4
-        if any(c < 0 for c in cdef[:siz.ncomponents]):
-            cdef = [i + 1 for i in range(4)]
-            if siz.ncomponents % 2 == 0:
-                cdef[siz.ncomponents - 1] = 0
+        cdef = _cdef(hdr)
         k = 0
         for tile in tiles:
             comp_planes = []

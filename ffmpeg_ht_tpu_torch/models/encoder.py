@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -139,6 +139,12 @@ class EncoderConfig:
                            # leaves them in place. Lossless paths stay
                            # bit-exact. Requires roi_shift >= bitlength of
                            # the largest background coefficient
+    origin: Tuple[int, int] = (0, 0)  # image offset (XOsiz, YOsiz) on the
+                           # reference grid, tiles from (0, 0): the image
+                           # spans [origin, origin + its size); a
+                           # subsampled component's plane is the
+                           # ceil(x / dx) grid over that span. HT encoder
+                           # only
     roi_rect: Optional[tuple] = None  # (x0, y0, x1, y1) in image coords:
                            # coefficients whose subband footprint lies in
                            # the rect are ROI (kept at full precision even
@@ -183,7 +189,7 @@ def _put_siz(out: bytearray, siz: SIZ) -> None:
     out.extend(_be16(mk.SIZ) + _be16(38 + 3 * siz.ncomponents))
     out.extend(_be16(siz.rsiz))               # Rsiz (0x4000 for Part 15)
     out.extend(_be32(siz.width) + _be32(siz.height))
-    out.extend(_be32(0) + _be32(0))           # X0Siz/Y0Siz
+    out.extend(_be32(siz.x0) + _be32(siz.y0))  # X0Siz/Y0Siz
     out.extend(_be32(siz.tile_width) + _be32(siz.tile_height))
     out.extend(_be32(0) + _be32(0))           # XT0/YT0
     out.extend(_be16(siz.ncomponents))
@@ -595,8 +601,9 @@ def encode_frame_htj2k(img: Union[np.ndarray, Sequence[np.ndarray]],
                         quantsty=mk.QSTY_SE if lossy else mk.QSTY_NONE)
     _init_quantization(codsty, qntsty, cbps)
 
-    siz = SIZ(rsiz=0x4000, width=width, height=height,
-              tile_width=cfg.tile_width, tile_height=cfg.tile_height,
+    ox, oy = cfg.origin
+    siz = SIZ(rsiz=0x4000, width=ox + width, height=oy + height, x0=ox,
+              y0=oy, tile_width=cfg.tile_width, tile_height=cfg.tile_height,
               components=[
                   ComponentInfo(depth=cbps, sgnd=cfg.sgnd,
                                 dx=(1 << chroma_shift[0]) if (i + 1) & 2 else 1,
@@ -626,7 +633,10 @@ def encode_frame_htj2k(img: Union[np.ndarray, Sequence[np.ndarray]],
             x0, x1 = comp.coord[0]
             y0, y1 = comp.coord[1]
             cw, ch = x1 - x0, y1 - y0
-            p = planes_in[compno][y0:y1, x0:x1].astype(np.int32)
+            cx0 = -(-ox // siz.components[compno].dx)
+            cy0 = -(-oy // siz.components[compno].dy)
+            p = planes_in[compno][y0 - cy0:y1 - cy0,
+                                  x0 - cx0:x1 - cx0].astype(np.int32)
             if not cfg.sgnd:
                 # DC level shift for unsigned components only (T.800
                 # G.1.2; signed input is already zero-centered)

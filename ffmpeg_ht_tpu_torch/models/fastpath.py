@@ -140,7 +140,8 @@ class FlatGeometry:
         # (abs_lane_start, ch, cw, plane_idx, tileno, compno, rlno, bandno)
         self.prec_list = []
         self.v3_plan = None        # built lazily by models.assembly
-        self.v3_progs = {}         # (F, ms_class, no_istep, wire_pack) -> V3Program
+        self.v3_progs = {}         # (F, ms_class, no_istep, layout,
+                                   #  wire_pack) -> V3Program
         # per-tile: packet metadata for the native parser
         self.tile_pkts = []
         self.tile_range = []

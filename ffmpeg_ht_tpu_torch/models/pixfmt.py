@@ -137,18 +137,21 @@ def output_precision(fmt: PixFmt, precision: int) -> int:
     return precision
 
 
+def frame_shapes(fmt: PixFmt, width: int,
+                 height: int) -> List[Tuple[int, int]]:
+    """(rows, samples a row) of each plane of a frame in rawvideo layout."""
+    if not fmt.planar:
+        return [(height, width * fmt.nb_components)]
+    return [(-(-height >> fmt.log2_chroma_h) if i in (1, 2) else height,
+             -(-width >> fmt.log2_chroma_w) if i in (1, 2) else width)
+            for i in range(fmt.nb_components)]
+
+
 def alloc_frame(fmt: PixFmt, width: int, height: int) -> List[np.ndarray]:
     """Allocate per-plane arrays in rawvideo layout."""
     dt = np.uint8 if fmt.bytes_per_sample == 1 else np.uint16
-    planes = []
-    if fmt.planar:
-        for i in range(fmt.nb_components):
-            cw = -(-width >> fmt.log2_chroma_w) if i in (1, 2) else width
-            ch = -(-height >> fmt.log2_chroma_h) if i in (1, 2) else height
-            planes.append(np.zeros((ch, cw), dtype=dt))
-    else:
-        planes.append(np.zeros((height, width * fmt.nb_components), dtype=dt))
-    return planes
+    return [np.zeros(shape, dtype=dt)
+            for shape in frame_shapes(fmt, width, height)]
 
 
 def pack_rawvideo(fmt: PixFmt, planes: List[np.ndarray]) -> bytes:

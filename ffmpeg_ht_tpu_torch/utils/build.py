@@ -49,9 +49,14 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _P,        # per-lane vectors
                               _I, _I, _I, _I,            # N, qw, qh, class
                               _P, _P, _P, _P],           # mu, sig, ok, stream
-    "rct_writeframe_launch": [_P, _P, _P, _I64, _I, _P, _I, _P],
+    "rct_writeframe_launch": [_P, _P, _P, _I64, _I64,    # y0..y2, h, w
+                              _I, _P, _I64, _I,          # cbps, out, size,
+                                                         # kind
+                              _P, _P],                   # dests, stream
     "ict_writeframe_launch": [_P, _P, _P, _I,            # y0s..y2s, frames
-                              _I64, _I, _P, _I64,        # n, cbps, out, stride
+                              _I64, _I64, _I,            # h, w, cbps
+                              _P, _I64, _I64, _P,        # out, size,
+                                                         # stride, dests
                               _I, _I, _P],               # kind, mode, stream
     "ht_sigprop_pass_launch": [_P, _P, _I,               # sig, spw
                                _P, _P,                   # has_sp, causal
@@ -86,7 +91,8 @@ _SIGNATURES = {
                                                          # stream, launches
     "plane_writeframe_launch": [_P, _I, _P, _I,          # table, n, base,
                                                          # float
-                                _I, _P, _I,              # cbps, out, kind
+                                _I, _P, _I64, _I,        # cbps, out, size,
+                                                         # kind
                                 _P, _P],                 # stream, launches
 }
 

@@ -135,7 +135,8 @@ def test_coef_mosaic_ref_matches_jax(geom, tname):
     jplan, plan, key = _plans(geom)
     n_pad = plan.n_lanes + PADS
     prog = ASM.V3Program(plan, key[:-1] + (transform,), qw=plan.bw // 2,
-                         qh=plan.bh // 2, ms_class=8, n_pad=n_pad, frames=F)
+                         qh=plan.bh // 2, ms_class=8, n_pad=n_pad, frames=F,
+                         layout=ASM.FrameLayout.identity(key))
     assert prog.band_direct
     layout = prog.layout
     assert layout.n_lanes == F * n_pad

@@ -51,7 +51,9 @@ under lane samples, a buffer most of which no lane covers, 16-byte
 aligned and odd destinations and strides, more buckets than two
 launches take) and ``plane_writeframe`` matches
 ``plane_writeframe_ref`` (float ties, both output widths, more planes
-than a launch takes); a band-direct V3Program, one with levels under
+than a launch takes); the three write kernels into a frame layout
+(interleaved, shifted, offset; planar; scattered) match their plain
+versions; a band-direct V3Program, one with levels under
 8x8 and a BucketProgram on the card give the CPU decoder's bytes with
 every plain stage made to raise. With two cards or more:
 every kernel on the second card's tensors
@@ -318,6 +320,75 @@ def test_ict_kernel_rejects_bad_args(cuda):
         mct_cuda.ict_writeframe([y], 8, DWT97, out=out[1:])
     with pytest.raises(ValueError):              # planes on two shapes
         mct_cuda.ict_writeframe([y, [t[:4] for t in y]], 8, DWT97)
+
+
+def _frame_dests(layout, shape, cbps, out_dtype):
+    """(dests of three (H, W) planes in a frame, the output's size):
+    "inter", R, G, B interleaved as a tile at x 5, y 2 of a frame whose
+    rows are 3 * (W + 9) samples, shifted to the top of the sample type;
+    "inter-flat", interleaved rows back to back from an unaligned start;
+    "planar", three planes with padded rows at odd offsets; "scatter",
+    every fourth sample (an alpha slot between, left alone)."""
+    h, w = shape
+    sh = {torch.uint8: 8, torch.int16: 16, torch.int32: 30}[out_dtype] - cbps
+    if layout == "inter":
+        rs = 3 * (w + 9)
+        base = 2 * rs + 15
+        return [(base + k, rs, 3, sh) for k in range(3)], base + h * rs
+    if layout == "inter-flat":
+        return [(3 + k, 3 * w, 3, sh) for k in range(3)], 3 * h * w + 3
+    if layout == "planar":
+        rs = w + 3
+        return ([(1 + k * (h * rs + 5), rs, 1, sh) for k in range(3)],
+                3 * (h * rs + 5))
+    rs = 4 * w + 4
+    return [(k + 2, rs, 4, sh) for k in range(3)], h * rs
+
+
+@pytest.mark.parametrize("layout", ["inter", "inter-flat", "planar",
+                                    "scatter"])
+@pytest.mark.parametrize("shape", [(2160, 4096), (37, 1053)])
+@pytest.mark.parametrize("out_dtype,cbps", [(torch.uint8, 8),
+                                            (torch.int16, 10),
+                                            (torch.int32, 12)])
+def test_write_kernels_in_a_frame_layout_match_their_plain_versions(
+        cuda, layout, shape, out_dtype, cbps):
+    """rct_writeframe, ict_writeframe (both modes, three frames a launch)
+    and plane_writeframe writing into an interleaved, shifted, offset
+    frame layout (and a planar and a scattered one) against their plain
+    versions; the samples no dest takes keep their value."""
+    dests, size = _frame_dests(layout, shape, cbps, out_dtype)
+    g = torch.Generator().manual_seed(cbps + len(layout))
+    lim = 1 << (cbps + 1)
+    y = [torch.randint(-lim, lim, shape, generator=g, dtype=torch.int32)
+         .to(cuda) for _ in range(3)]
+    want = torch.full((size,), 77, dtype=out_dtype, device=cuda)
+    got = want.clone()
+    mct_cuda.rct_writeframe_ref(*y, cbps, want, dests)
+    mct_cuda.rct_writeframe(*y, cbps, out=got, dests=dests)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    stride = size + 37
+    for transform in (DWT97_INT, DWT97):
+        frames = [_ict_inputs(transform, shape, cbps, cbps + 7 * f, cuda)
+                  for f in range(3)]
+        want = torch.full((2 * stride + size,), 77, dtype=out_dtype,
+                          device=cuda)
+        got = want.clone()
+        for f, fy in enumerate(frames):
+            mct_cuda.ict_writeframe_ref(
+                *fy, cbps, transform, want,
+                [(d + f * stride, rs, cs, sh) for d, rs, cs, sh in dests])
+        mct_cuda.ict_writeframe(frames, cbps, transform, out=got,
+                                frame_stride=stride, dests=dests)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    want = torch.full((size,), 77, dtype=out_dtype, device=cuda)
+    got = want.clone()
+    mct_cuda.plane_writeframe_ref(y, cbps, want, dests)
+    mct_cuda.plane_writeframe(y, cbps, got, dests)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 _REFINE_KEYS = ("mu", "sig", "spw", "mrw", "pLSB", "has_sp", "has_mr",
@@ -683,7 +754,9 @@ def _coef_program(geom, transform, frames, n_extra):
     plan = assembly.build_plan(fg)
     return assembly.V3Program(plan, fg.geom.key()[:-1] + (transform,),
                               qw=plan.bw // 2, qh=plan.bh // 2, ms_class=8,
-                              n_pad=plan.n_lanes + n_extra, frames=frames)
+                              n_pad=plan.n_lanes + n_extra, frames=frames,
+                              layout=assembly.FrameLayout.identity(
+                                  fg.geom.key()))
 
 
 def _same_bits(a, b):
@@ -1116,7 +1189,7 @@ def test_plane_writeframe_kernel_matches_ref(cuda, src, out_dtype, cbps):
         n = int(rng.integers(0, 3000)) if k % 11 else 4097
         o = int(rng.integers(0, b.numel() - n))
         planes.append(b[o:o + n])
-        offs.append(pos)
+        offs.append(mct_cuda.back_to_back((1, n), 1, pos)[0])
         pos += n + int(rng.integers(0, 3))
     want = mct_cuda.plane_writeframe_ref(
         planes, cbps, torch.zeros(pos, dtype=out_dtype, device=cuda), offs)

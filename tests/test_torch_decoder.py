@@ -7,8 +7,14 @@ nreslevels=3, 32x32 codeblocks: every DWT level takes the band-direct
 path). Also pinned: the port's ``finish_v3`` arrays (5/3, integer and
 float 9/7), the prefill scatter with its trash slot against the JAX
 program, the routing of streams outside the slice, and that the port
-imports neither ``jax`` nor the JAX package. The 9/7 path, the flat-DWT
-fallback and the batch entry points: tests/test_torch_decoder97.py.
+imports neither ``jax`` nor the JAX package. The frame write: each
+pixel format's ``frame_layout`` through ``decode``, ``decode_stream``
+and ``decode_batch`` against the JAX package's host decoder (rgb24,
+rgb48le, gray, gray16le, ya8, yuv420p, xyz12le, tiles with an image
+offset, a reduced resolution), the plain write versions in a layout
+against ``_write_frame_prescaled``, the identity layout, and the copy
+out of the fetched buffer. The 9/7 path, the flat-DWT fallback and the
+batch entry points: tests/test_torch_decoder97.py.
 """
 
 import dataclasses
@@ -22,15 +28,22 @@ import torch
 
 from ffmpeg_ht_tpu.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu.models import fastpath as FP
+from ffmpeg_ht_tpu.models import host_decoder as jax_host
 from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k, encode_frame_t800
 from ffmpeg_ht_tpu.ops.dwt import DWT97_INT
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream as \
     port_parse
+from ffmpeg_ht_tpu_torch.models import decoder as port_decoder
+from ffmpeg_ht_tpu_torch.models import encoder as port_encoder
 from ffmpeg_ht_tpu_torch.models import fastpath as port_fp
-from ffmpeg_ht_tpu_torch.models.assembly import V3Program, build_plan
-from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+from ffmpeg_ht_tpu_torch.models import pixfmt
+from ffmpeg_ht_tpu_torch.models.assembly import (FrameLayout, V3Program,
+                                                 build_plan)
+from ffmpeg_ht_tpu_torch.models.decoder import Decoder, frame_layout
 from ffmpeg_ht_tpu_torch.ops import ht_scan, mct_cuda
+from ffmpeg_ht_tpu_torch.ops.dwt import DWT97_INT
+from ffmpeg_ht_tpu_torch.utils import trace
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -182,6 +195,7 @@ def test_prefill_scatter_matches_jax(jax_dec):
     plan = build_plan(pfg)
     prog = V3Program(plan, fg.geom.key(), qw=bw // 2, qh=bh // 2,
                      ms_class=_ms_class(fc), n_pad=fg.ncblks, frames=1,
+                     layout=FrameLayout.identity(fg.geom.key()),
                      no_istep=True)
     got = prog(**{k: port_fp.to_torch(v, "cpu") for k, v in np_args.items()})
     assert got.dtype == torch.uint8 and got[-1] == 1
@@ -200,11 +214,13 @@ def test_u_bound_violation_raises_invalid_data(dec):
     fc = port_fp.build_v3_frame(fg, port_fp.parse_frame_flat(hdr, fg))
     args, _ = port_fp.finish_v3(fg, [fc], fg.geom.total, "cpu")
     args["maxbp"][:] = 1
-    prog = fg.v3_progs[(1, _ms_class(fc), True, False)]
+    # the program dec.decode built: the key holds the frame layout
+    layout = dec._layout([hdr], fg.geom)
+    prog = fg.v3_progs[(1, _ms_class(fc), True, layout)]
     packed = prog(**args)
     assert packed[-1] == 0
     with pytest.raises(InvalidData):
-        dec._finish(hdr, fg.tiles, fg.geom, packed)
+        dec._finish(hdr, fg.tiles, fg.geom, (packed, layout))
 
 
 def test_outside_slice_raises_not_host(dec, jax_dec):
@@ -267,3 +283,254 @@ def test_port_never_imports_jax(tmp_path):
                          text=True, timeout=300, cwd=str(tmp_path))
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NO_JAX_OK" in res.stdout
+
+
+# ---- the frame write: each pixel format's layout, written by the program
+
+TINY = dict(nreslevels=2, log2_cblk_width=4, log2_cblk_height=4)
+
+
+def _dci(data):
+    """The stream with Rsiz 4 (DCI 4K profile) in place of 0x4000: 12-bit
+    RGB then negotiates xyz12le."""
+    b = bytearray(data)
+    assert b[6:8] == b"\x40\x00"
+    b[6:8] = b"\x00\x04"
+    return bytes(b)
+
+
+def _img(seed, shape, hi=256):
+    rng = np.random.default_rng(seed)
+    dtype = np.uint8 if hi <= 256 else np.uint16
+    if isinstance(shape, list):
+        return [rng.integers(0, hi, s, dtype=dtype) for s in shape]
+    return rng.integers(0, hi, shape, dtype=dtype)
+
+
+# name: (image shape, sample range, encoder options, reduction factor,
+# Rsiz patch, the format negotiated)
+LAYOUTS = {
+    "rgb24-rct": ((24, 40, 3), 256, dict(mct=True), 0, False, "rgb24"),
+    "rgb24-ict": ((24, 40, 3), 256, dict(mct=True, pred=0), 0, False,
+                  "rgb24"),
+    "rgb48le-10b": ((24, 40, 3), 1024, dict(depth=10, mct=True), 0, False,
+                    "rgb48le"),
+    "gray": ((24, 40), 256, {}, 0, False, "gray"),
+    "gray16le-12b": ((24, 40), 4096, dict(depth=12), 0, False, "gray16le"),
+    "ya8": ((24, 40, 2), 256, {}, 0, False, "ya8"),
+    "yuv420p": ([(24, 40), (12, 20), (12, 20)], 256,
+                dict(chroma_shift=(1, 1)), 0, False, "yuv420p"),
+    "xyz12le-dci": ((24, 40, 3), 4096, dict(depth=12, mct=True), 0, True,
+                    "xyz12le"),
+    "rgb48le-tiles-offset": ((37, 45, 3), 1024,
+                             dict(depth=10, mct=True, tile_width=16,
+                                  tile_height=16, origin=(5, 3)), 0, False,
+                             "rgb48le"),
+    # odd offset: the chroma planes have a column no tile writes (zero)
+    "yuv420p-tiles-offset": ([(23, 41), (12, 21), (12, 21)], 256,
+                             dict(chroma_shift=(1, 1), origin=(1, 1),
+                                  tile_width=16, tile_height=16), 0, False,
+                             "yuv420p"),
+    "rgb48le-lowres": ((24, 40, 3), 1024, dict(depth=10, mct=True), 1,
+                       False, "rgb48le"),
+    "yuv420p-lowres": ([(24, 40), (12, 20), (12, 20)], 256,
+                       dict(chroma_shift=(1, 1)), 1, False, "yuv420p"),
+}
+
+
+def _layout_streams(name, frames=2):
+    shape, hi, enc, red, dci, _fmt = LAYOUTS[name]
+    streams = [port_encoder.encode_frame_htj2k(_img(seed, shape, hi),
+                                               **TINY, **enc)
+               for seed in range(frames)]
+    return [_dci(d) for d in streams] if dci else streams
+
+
+@pytest.mark.parametrize("entry", ["decode", "decode_stream",
+                                   "decode_batch"])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_frame_layout_matches_the_jax_package(name, entry):
+    """The program writes the negotiated format's frame (interleaved,
+    shifted to the output precision, each tile at its place) and the
+    host copies its planes out: every plane equals the JAX package's
+    host decoder's, which its suite holds equal to its ``Decoder`` (a
+    JAX ``Decoder`` compiles a program per geometry, tens of seconds
+    on the CPU), and every frame counts ``device_layout_frames``."""
+    streams = _layout_streams(name)
+    red = LAYOUTS[name][3]
+    dec = Decoder(device="cpu", reduction_factor=red)
+    c0 = trace.counters.get("device_layout_frames", 0)
+    if entry == "decode":
+        got = [dec.decode(d) for d in streams]
+    elif entry == "decode_stream":
+        got = list(dec.decode_stream(streams, depth=2))
+    else:
+        got = dec.decode_batch(streams)
+    assert trace.counters["device_layout_frames"] - c0 == len(streams)
+    assert dec.v3_frames + dec.v2_frames == len(streams)
+    for g, d in zip(got, streams):
+        want = jax_host.decode_frame(d, bitexact=True, reduction_factor=red)
+        assert g.fmt.name == want.fmt.name == LAYOUTS[name][5]
+        assert (g.width, g.height) == (want.width, want.height)
+        assert len(g.planes) == len(want.planes)
+        for a, b in zip(g.planes, want.planes):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert np.array_equal(a, b)
+
+
+def test_frame_layout_of_tiles_at_an_offset_matches_the_jax_decoder(
+        jax_dec):
+    """The interleaved, shifted layout of tiles at an image offset
+    through ``decode_batch`` against the JAX ``Decoder``'s device
+    program itself (one geometry: a compile of ~10 s on the CPU)."""
+    streams = _layout_streams("rgb48le-tiles-offset")
+    got = Decoder(device="cpu").decode_batch(streams)
+    want = jax_dec.decode_batch(streams)
+    assert [g.fmt.name for g in got] == [w.fmt.name for w in want] \
+        == ["rgb48le"] * 2
+    for g, w in zip(got, want):
+        assert len(g.planes) == len(w.planes) == 1
+        assert g.planes[0].dtype == w.planes[0].dtype
+        assert np.array_equal(g.planes[0], w.planes[0])
+
+
+def _dci_mix(n):
+    """`n` 12-bit RGB streams of one geometry (ramps with a little noise,
+    so that every frame takes the same guard bits), the first half with
+    Rsiz 4 (xyz12le), the rest with 0x4000 (rgb48le)."""
+    shape, _hi, enc, *_rest = LAYOUTS["xyz12le-dci"]
+    ramp = np.add.outer(np.arange(24) * 40, np.arange(40) * 50)[:, :, None] \
+        + np.array([0, 300, 600])
+    streams = [port_encoder.encode_frame_htj2k(
+        (ramp + _img(seed, shape, 64)).astype(np.uint16), **TINY, **enc)
+        for seed in range(n)]
+    return [_dci(d) for d in streams[:n // 2]] + streams[n // 2:]
+
+
+@pytest.mark.parametrize("shards", [None, 2, 4])
+def test_a_batch_of_two_formats_decodes_each_frame_in_its_own(shards):
+    """xyz12le and rgb48le frames of one geometry in one batch share no
+    frame layout: the program writes the identity layout and each frame
+    is written by its own header, on one device and over 2 shards (each
+    shard's frames agree among themselves) or 4 (one frame each). The
+    split takes the layout from the program's output, never from the
+    shard's own headers."""
+    streams = _dci_mix(4)
+    hdrs = [port_parse(d) for d in streams]
+    fg = port_fp.FlatGeometry(hdrs[0])
+    assert frame_layout(hdrs, fg.geom) == FrameLayout.identity(fg.geom.key())
+    dec = Decoder(device="cpu")
+    got = dec.decode_batch(streams, require_shard=shards is not None,
+                           devices=None if shards is None
+                           else ["cpu"] * shards)
+    assert dec.v3_frames == 4
+    assert [g.fmt.name for g in got] == ["xyz12le"] * 2 + ["rgb48le"] * 2
+    for g, d in zip(got, streams):
+        want = jax_host.decode_frame(d, bitexact=True)
+        assert g.fmt.name == want.fmt.name
+        assert np.array_equal(g.planes[0], want.planes[0])
+
+
+def _layout_of(name):
+    hdr = port_parse(_layout_streams(name, 1)[0],
+                     reduction_factor=LAYOUTS[name][3])
+    fg = port_fp.FlatGeometry(hdr)
+    return hdr, fg, frame_layout([hdr], fg.geom)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("rgb48le-tiles-offset", "rct"), ("rgb24-ict", "ict"),
+    ("yuv420p-tiles-offset", "plane"), ("ya8", "plane"),
+    ("gray16le-12b", "plane")])
+def test_writeframe_refs_in_a_layout_equal_write_frame_prescaled(name,
+                                                                 kind):
+    """The plain write versions, each tile-component plane at its dest of
+    the frame layout, give the frame that ``_write_frame_prescaled``
+    writes from the same clipped planes (the host write before the
+    layout, which the identity layout's route keeps)."""
+    hdr, fg, layout = _layout_of(name)
+    geom, siz = fg.geom, hdr.siz
+    rng = np.random.default_rng(3)
+    lo, hi = -(1 << geom.cbps), 1 << geom.cbps  # past the clip both ways
+    ys = [torch.from_numpy(rng.integers(lo, hi, (ph, pw)).astype(np.int32))
+          for _o, ph, pw in geom.planes]
+    out = torch.full((layout.frame_size,), 0,
+                     dtype=torch.int16 if layout.wide else torch.uint8)
+    clipped = {}
+    for idxs in geom.tile_comp_index:
+        y = [ys[i] for i in idxs]
+        dests = [layout.dests[i] for i in idxs]
+        if kind == "rct":
+            mct_cuda.rct_writeframe_ref(*y[:3], geom.cbps, out, dests[:3])
+            c = mct_cuda.rct_writeframe_ref(*y[:3], geom.cbps)
+        elif kind == "ict":
+            mct_cuda.ict_writeframe_ref(*y[:3], geom.cbps, DWT97_INT, out,
+                                        dests[:3])
+            c = mct_cuda.ict_writeframe_ref(*y[:3], geom.cbps, DWT97_INT)
+        else:
+            mct_cuda.plane_writeframe_ref(y, geom.cbps, out, dests)
+            c = [mct_cuda.dc_shift_clip(p, geom.cbps) for p in y]
+        clipped.update(zip(idxs, c))
+    fmt = pixfmt.negotiate(siz, hdr.colour_space, siz.rsiz)
+    want = pixfmt.alloc_frame(fmt, layout.width, layout.height)
+    for tile, idxs in zip(fg.tiles, geom.tile_comp_index):
+        port_decoder._write_frame_prescaled(
+            hdr, tile, [clipped[i].numpy().astype(np.int64) for i in idxs],
+            fmt, want, pixfmt.output_precision(fmt, siz.precision),
+            port_decoder._cdef(hdr))
+    buf = out.numpy().view(np.uint16) if layout.wide else out.numpy()
+    assert layout.zero == (name == "yuv420p-tiles-offset")
+    for (o, h, w), plane in zip(layout.planes, want):
+        assert np.array_equal(buf[o:o + h * w].reshape(h, w), plane)
+
+
+def test_identity_layout_is_the_tile_component_planes_back_to_back():
+    """The identity layout is the tile-component planes back to back,
+    unshifted (the layout the wire pack and the programs' tests take),
+    and the write versions' default dests are that layout. A program in
+    it writes one geometry's samples and the flag; it is the layout the
+    decoder picks for the wire pack."""
+    hdr, fg, layout = _layout_of("rgb48le-10b")
+    geom = fg.geom
+    ident = FrameLayout.identity(geom.key())
+    assert ident.dests == tuple((o, w, 1, 0) for o, _h, w in geom.planes)
+    assert ident.fmt is None and layout.fmt.name == "rgb48le"
+    assert layout.dests[1] == (1, 3 * 40, 3, 6)   # G: interleaved, << 6
+    assert Decoder(device="cpu", wire_pack=True)._layout([hdr], geom) \
+        == FrameLayout.identity(geom.key(), wire_pack=True)
+    plan = build_plan(fg)
+    prog = V3Program(plan, geom.key(), qw=plan.bw // 2, qh=plan.bh // 2,
+                     ms_class=8, n_pad=fg.ncblks, frames=1, layout=ident)
+    cols = port_fp.parse_frame_flat(hdr, fg)
+    args, _ = port_fp.finish_v3(fg, [port_fp.build_v3_frame(fg, cols)],
+                                geom.total, "cpu")
+    assert prog(**args).numel() == geom.total + 1
+    y = [torch.arange(12, dtype=torch.int32).reshape(3, 4) - 6 * k
+         for k in range(3)]
+    out = torch.zeros(36, dtype=torch.int16)
+    mct_cuda.rct_writeframe_ref(*y, 10, out, mct_cuda.back_to_back((3, 4)))
+    want = torch.cat([mct_cuda.narrow(c, torch.int16).reshape(-1)
+                      for c in mct_cuda.rct_writeframe_ref(*y, 10)])
+    assert torch.equal(out, want)
+
+
+def test_split_frames_copies_each_plane_out_of_the_buffer(dec):
+    """No plane ``_split_frames`` returns shares memory with the fetched
+    buffer, and the frames stay whole after the buffer is overwritten."""
+    streams = _layout_streams("rgb48le-tiles-offset", 1) * 3
+    hdrs = [port_parse(d) for d in streams]
+    fg = dec._fast_geom(hdrs[0])
+    layout = frame_layout(hdrs, fg.geom)
+    prog, args = dec._v3_program(
+        fg, [port_fp.parse_frame_flat(h, fg) for h in hdrs], layout)
+    packed = prog(**args)
+    assert packed.numel() == 3 * layout.frame_size + 1
+    frames = dec._split_frames([(h, fg.tiles) for h in hdrs], fg.geom,
+                               (packed, layout))
+    before = [f.tobytes() for f in frames]
+    assert before == [dec.decode(d).tobytes() for d in streams]
+    buf = packed.numpy()
+    assert not any(np.shares_memory(p, buf) for f in frames
+                   for p in f.planes)
+    packed[:-1] = 0
+    assert [f.tobytes() for f in frames] == before

@@ -151,7 +151,8 @@ def test_device_check_still_raises(name, monkeypatch):
                   fscale=meta(4, dtype=torch.float32))], v, v, 16,
             mct_cuda.DWT97_INT, False),
         "plane_writeframe": lambda: mct_cuda.plane_writeframe(
-            [meta(4, 4)], 10, meta(16, dtype=torch.int16), [0]),
+            [meta(4, 4)], 10, meta(16, dtype=torch.int16),
+            mct_cuda.back_to_back((4, 4), 1)),
     }
     with pytest.raises(ValueError, match="device"):
         calls[name]()

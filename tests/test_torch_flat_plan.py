@@ -180,7 +180,8 @@ def test_bucket_scatter_and_plan_equal_jax_compiled_assembly():
     prefill entry under a lane sample gives the lane's sample in both."""
     geom, shapes, bargs, pf_idx, pf_val, mus = _bucket_inputs()
     key = geom.key()
-    prog = port_asm.BucketProgram(shapes, key)
+    prog = port_asm.BucketProgram(shapes, key,
+                                  port_asm.FrameLayout.identity(key))
     assert prog.lift.small_launches == 1
     tb = [{k: torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray)
            else v for k, v in a.items()} for a in bargs]
@@ -225,7 +226,9 @@ def test_plane_writeframe_plain_route(out_dtype, cbps):
     for src in (f, i):
         out = torch.full((len(src) + 5,), 7, dtype=out_dtype)
         planes = [torch.from_numpy(src[:4]), torch.from_numpy(src[4:])]
-        got = mct_cuda.plane_writeframe(planes, cbps, out, [0, 9])
+        got = mct_cuda.plane_writeframe(
+            planes, cbps, out, [mct_cuda.back_to_back((1, p.numel()), 1, o)[0]
+                                for p, o in zip(planes, (0, 9))])
         v = np.rint(src).astype(np.int64) if src.dtype == np.float32 \
             else src.astype(np.int64)
         want = np.clip((v + shift + (1 << 31)) % (1 << 32) - (1 << 31), 0,
@@ -256,7 +259,8 @@ def test_layered_stream_with_small_levels_on_the_v2_path(name):
     fg = dec._fast_geom(hdr)
     geom, (shapes, *_rest), _acc = dec._v2_args(
         fg, [port_fp.parse_frame_flat(hdr, fg)])
-    prog = port_decoder.bucket_program(tuple(map(tuple, shapes)), geom.key())
+    prog = port_decoder.bucket_program(tuple(map(tuple, shapes)), geom.key(),
+                                       dec._layout([hdr], fg.geom))
     assert prog.lift.small_launches == 1
     assert got.tobytes() == port_host.decode_frame(data,
                                                    bitexact=True).tobytes()
@@ -284,7 +288,8 @@ def test_v3_program_with_small_levels_equals_the_composed_route(tname):
     dec = Decoder(device="cpu", bitexact=t != DWT97)
     hdr = dec._parse(data)
     fg = dec._fast_geom(hdr)
-    prog, args = dec._v3_program(fg, [port_fp.parse_frame_flat(hdr, fg)])
+    prog, args = dec._v3_program(fg, [port_fp.parse_frame_flat(hdr, fg)],
+                                 dec._layout([hdr], fg.geom))
     assert not prog.band_direct and prog.lift.small_launches == 1
     outs, _ok = prog.decode_planes(**args)
     mu, _sig, _ok = decode_cleanup_scan_dims(
@@ -416,7 +421,8 @@ def test_scatter_schedule_equals_ref_and_jax_compiled_assembly(case):
         pf_idx = np.concatenate([pf_idx, np.array(extra, np.int32)])
         pf_val = np.concatenate([pf_val, rng.integers(
             -500, 500, len(extra)).astype(pf_val.dtype)])
-    prog = port_asm.BucketProgram(shapes, geom.key())
+    prog = port_asm.BucketProgram(
+        shapes, geom.key(), port_asm.FrameLayout.identity(geom.key()))
     got = _emulate_scatter(mus, prog.dims, bargs, pf_idx, pf_val,
                            prog.total, prog.transform, False)
     assert (got != _GARBAGE).all()

@@ -252,6 +252,37 @@ def test_float97_frames_count_float_frames_on_either_program(monkeypatch,
     assert trace.counters.get("float97_frames", 0) == f0
 
 
+@pytest.mark.parametrize("v3", ["1", "0"])
+def test_device_layout_frames_count_frames_copied_out_of_the_layout(
+        monkeypatch, frames, v3):
+    """Each frame ``_split_frames`` copies out of the program's frame
+    layout counts once, on the v3 and on the v2 program, through both
+    entries; the wire-packed route (the identity layout, unpacked and
+    written by the host) counts none."""
+    monkeypatch.setenv("FFMPEG_HT_TPU_V3", v3)
+    _imgs, streams = frames
+    dec = Decoder(device="cpu")
+    c0 = trace.counters.get("device_layout_frames", 0)
+    dec.decode_batch(streams)
+    list(dec.decode_stream(streams))
+    assert trace.counters["device_layout_frames"] - c0 == 6
+    assert dec.v3_frames + dec.v2_frames == 6
+    deep = [encoder.encode_frame_htj2k(
+        np.random.default_rng(s).integers(0, 4096, (96, 128),
+                                          dtype=np.uint16), depth=12, **ENC)
+        for s in (5, 6)]
+    dec = Decoder(device="cpu", wire_pack=True)
+    c0 = trace.counters["device_layout_frames"]
+    dec.decode_batch(deep)
+    list(dec.decode_stream(deep))
+    assert trace.counters["device_layout_frames"] == c0
+    assert dec.v3_frames + dec.v2_frames == 4
+    fg = dec._fast_geom(parse_codestream(deep[0]))
+    assert fg.v3_progs or v3 == "0"
+    assert all(p.wire_pack and p.frame_layout.fmt is None
+               for p in fg.v3_progs.values())
+
+
 def test_builds_count_a_new_geometry_once(frames, tracer):
     _imgs, streams = frames
     dec = Decoder(device="cpu")
@@ -277,7 +308,8 @@ class FakeTracer:
     call 2 over 10-20 ms and 40-50 ms."""
 
     def __init__(self, dispatch=True):
-        self.counters = {"builds": 5, "oracle_lanes": 2, "float97_frames": 4}
+        self.counters = {"builds": 5, "oracle_lanes": 2, "float97_frames": 4,
+                         "device_layout_frames": 4}
         self._launches, self._on, self._recorded = 100, False, False
         self.spans = []
         for call, d0, f0 in ((1, 0, 30), (2, 10, 40)):
@@ -299,7 +331,8 @@ class FakeTracer:
     def record(self):
         """The window: its spans, and what it adds to the counters."""
         self._recorded = True
-        self.counters = {"builds": 6, "oracle_lanes": 5, "float97_frames": 6}
+        self.counters = {"builds": 6, "oracle_lanes": 5, "float97_frames": 6,
+                         "device_layout_frames": 6}
         self._launches += 20
 
     def drain(self):
@@ -322,7 +355,8 @@ READERS = {"parse_ms": 1.0, "lane_cols_ms": 4.0, "lane_args_ms": 1.0,
            "upload_ms": 1.0, "launch_ms": 1.0, "fetch_ms": 1.0,
            "write_ms": 8.0, "output_held_ms": 20.0,
            "launches_per_frame": 10.0, "oracle_lanes_per_frame": 1.5,
-           "builds": 1, "float97_frames_per_frame": 1.0}
+           "builds": 1, "float97_frames_per_frame": 1.0,
+           "device_layout_frames_per_frame": 1.0}
 
 
 def _traced(monkeypatch, fake):
@@ -359,6 +393,16 @@ def test_float97_reader_is_none_where_the_program_has_no_counter(
     del fake.counters["float97_frames"]       # an older program's tracer
     assert spec.module("layers", "float97_frames_per_frame").read(t) is None
     assert spec.module("layers", "builds").read(t) == 1
+
+
+def test_device_layout_reader_is_none_where_the_program_has_no_counter(
+        monkeypatch):
+    fake = FakeTracer()
+    t = _traced(monkeypatch, fake)
+    del fake.counters["device_layout_frames"]   # an older program's tracer
+    assert spec.module("layers",
+                       "device_layout_frames_per_frame").read(t) is None
+    assert spec.module("layers", "float97_frames_per_frame").read(t) == 1.0
 
 
 def _lossy_window(ops, bw=3.35e12):

@@ -114,7 +114,8 @@ def test_decode_batch_wire_pack_matches(packs):
     packed = dec.decode_batch(streams)
     assert dec.v3_frames == 3 and packs == [(3 * 96 * 128 * 3 + 1, 10)]
     (fg,) = dec._geoms.values()
-    assert [k[-1] for k in fg.v3_progs] == [True]     # one packed program
+    # one packed program: the key's layout holds the pack
+    assert [k[-1].wire_pack for k in fg.v3_progs] == [True]
     for a, b, img in zip(plain, packed, imgs):
         assert a.tobytes() == b.tobytes()
         assert np.array_equal(b.planes[0].reshape(img.shape), img << 6)
@@ -156,4 +157,4 @@ def test_wire_pack_8bit_is_inert(packs):
     assert not d._wp(8) and d._wp(10) and not d._wp(16)
     assert d.decode(data).tobytes() == img.tobytes()
     (fg,) = d._geoms.values()
-    assert [k[-1] for k in fg.v3_progs] == [False] and packs == []
+    assert [k[-1].wire_pack for k in fg.v3_progs] == [False] and packs == []
