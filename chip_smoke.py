@@ -1440,23 +1440,20 @@ def _v2_buckets(dec, streams):
 
 def _object_buckets(dec, data):
     """As ``_v2_buckets``, for the object path's BucketProgram
-    (``Decoder._launch``: ``_build_batch``, then ``_bucket_arrays`` in key
-    order with the MagSgn class of each bucket's largest maxbp, as
-    ``Decoder._dispatch`` packs them), and that BucketProgram with its
-    arguments on the card: ("v2", shapes, bucket arrays, segments,
-    program, (pf_idx, pf_val, bucket args))."""
+    (``Decoder._device_decode``: ``_build_batch``, then each bucket's
+    ``_Bucket.pack`` in key order, as ``Decoder._dispatch`` packs them),
+    and that BucketProgram with its arguments on the card: ("v2", shapes,
+    bucket arrays, segments, program, (pf_idx, pf_val, bucket args))."""
     hdr = dec._parse(data)
     geom, buckets, prefill = DEC._build_batch(hdr, dec._parse_tiles(hdr))
     shapes, bargs, segs = [], [], []
     for key in sorted(buckets):
         b = buckets[key]
-        args, _n = DEC._bucket_arrays(b)
-        msc = next(c for c in (8, 12, 16, 20, 25) if max(b.maxbp) <= c)
-        shapes.append((-(-b.w // 2), -(-b.h // 2), b.w, b.h, msc,
-                       b.refined))
+        shape, args = b.pack()
+        shapes.append(shape)
         bargs.append(args)
         segs.append((np.asarray(b.lcup), np.asarray(b.pcup),
-                     *_dref_bytes([lr for _d, lr in b.dref], b.zblk)))
+                     *_dref_bytes(b.lref, b.zblk)))
     nz = np.nonzero(prefill[:-1])[0]
     pf_idx = nz.astype(np.int32) if len(nz) else \
         np.array([geom.total], np.int32)

@@ -538,7 +538,7 @@ class BucketProgram(_Program):
     with its layout's ``wire_pack``); `shapes` holds a
     ``(qw, qh, w, h, ms_class, refined)`` tuple per bucket and
     `bucket_args` that bucket's lane arrays (models/fastpath.
-    finish_buckets, or decoder._bucket_arrays) on the device, ``nreal``
+    pack_bucket) on the device, ``nreal``
     an int. Per bucket: the HT cleanup, plus SigProp / MagRef on refined
     buckets (ops/ht_refine). Then one ``bucket_scatter`` call dequantizes
     every lane into one flat buffer of ``total + 1`` samples after the

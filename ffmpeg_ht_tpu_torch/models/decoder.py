@@ -3,8 +3,9 @@
 
 The host tier is the port's own copy of the reference's: codestream
 parse, the flat fast lane (native T2 parse, lane building, assembly
-plan), the object path's bucketing (``_Bucket`` .. ``_bucket_arrays``
-below, copied verbatim apart from the imports), the host oracle and the
+plan), the object path's bucketing (``_build_batch`` below, copied from
+the reference apart from the imports and its ``_Bucket``, which keeps
+each lane's bytes for ``fastpath.pack_bucket``), the host oracle and the
 frame writer. Two device programs, both for HTONLY streams with any of
 the three transforms (reversible 5/3, integer 9/7 with ``bitexact=True``,
 float 9/7 with ``bitexact=False``):
@@ -136,26 +137,46 @@ def _supported_on_device(hdr, tiles: List[Tile]) -> bool:
 
 @dataclass
 class _Bucket:
+    """One bucket of the object path, as ``fastpath.pack_bucket`` reads
+    it: each lane's cleanup bytes (modDcup applied) and Dref bytes, one
+    lane after another in `body`, and its columns."""
     w: int
     h: int
-    rows: List[np.ndarray] = field(default_factory=list)
+    body: bytearray = field(default_factory=bytearray)
+    off: List[int] = field(default_factory=list)     # lane's start in body
     lcup: List[int] = field(default_factory=list)
+    lref: List[int] = field(default_factory=list)    # 0 unless refined
+    zblk: List[int] = field(default_factory=list)    # 1..3 HT passes
     pcup: List[int] = field(default_factory=list)
-    pLSB: List[int] = field(default_factory=list)
-    maxbp: List[int] = field(default_factory=list)
+    zbp: List[int] = field(default_factory=list)     # zbp_eff
     magb: List[int] = field(default_factory=list)
     istep: List[int] = field(default_factory=list)
     scale97: List[int] = field(default_factory=list)   # int97 dequant scale
     fscale: List[float] = field(default_factory=list)  # float dequant scale
     dest: List[int] = field(default_factory=list)    # flat index of (y0,x0)
     stride: List[int] = field(default_factory=list)  # plane row stride
-    dref: List[tuple] = field(default_factory=list)  # (Dref bytes, lref)
-    zblk: List[int] = field(default_factory=list)    # 1..3 HT passes
     causal: List[int] = field(default_factory=list)  # CBLK_VSC per lane
 
-    @property
-    def refined(self) -> bool:
-        return any(z > 1 for z in self.zblk)
+    ROWS = ("lcup", "lref", "zblk")      # with `off`: the lanes' rows
+    COLS = ("pcup", "zbp", "magb", "istep", "scale97", "fscale", "dest",
+            "stride", "causal")
+
+    def extend(self, b: "_Bucket", dest_shift: int) -> None:
+        """Append `b`'s lanes, their dests shifted by `dest_shift`."""
+        self.off.extend(o + len(self.body) for o in b.off)
+        self.body += b.body
+        self.dest.extend(d + dest_shift for d in b.dest)
+        for fld in self.ROWS + self.COLS:
+            if fld != "dest":
+                getattr(self, fld).extend(getattr(b, fld))
+
+    def pack(self):
+        """(shape, argument dict) of the bucket (``fastpath.pack_bucket``;
+        its rows already carry modDcup)."""
+        return FP.pack_bucket(
+            (self.w, self.h),
+            [(self.body, self.off, *(getattr(self, k) for k in self.ROWS))],
+            {k: getattr(self, k) for k in self.COLS}, moddcup=False)
 
 
 def _build_batch(hdr, tiles: List[Tile]):
@@ -275,12 +296,17 @@ def _build_batch(hdr, tiles: List[Tile]):
                                 wc *= 2
                             key = (w, h, wc)
                             b = buckets.setdefault(key, _Bucket(w, h))
-                            b.rows.append(np.frombuffer(bytes(buf),
-                                                        np.uint8))
+                            lref = (cblk.pass_lengths[1] if z_blk > 1
+                                    else 0)
+                            dref = bytes(cblk.data[lcup:lcup + lref])
+                            b.off.append(len(b.body))
+                            # a truncated Dref segment reads as zeros
+                            b.body += buf + dref + bytes(lref - len(dref))
                             b.lcup.append(lcup)
+                            b.lref.append(lref)
+                            b.zblk.append(z_blk)
                             b.pcup.append(lcup - scup)
-                            b.pLSB.append(30 - zbp)
-                            b.maxbp.append(zbp + 1)
+                            b.zbp.append(zbp)
                             b.magb.append(magb)
                             b.istep.append(band.i_stepsize)
                             from ffmpeg_ht_tpu_torch.ops.dequant import int97_scale
@@ -293,15 +319,7 @@ def _build_batch(hdr, tiles: List[Tile]):
                                 if transform == mk.DWT97 else 0.0)
                             b.dest.append(dest)
                             b.stride.append(pstride)
-                            b.zblk.append(z_blk)
                             b.causal.append(int(causal))
-                            if z_blk > 1:
-                                lref = cblk.pass_lengths[1]
-                                b.dref.append(
-                                    (bytes(cblk.data[lcup:lcup + lref]),
-                                     lref))
-                            else:
-                                b.dref.append((b"", 0))
 
     geom = _Geometry(planes=planes, borders=tuple(borders),
                      ndecs=tuple(ndecs),
@@ -447,90 +465,6 @@ def _frame_layout(fmt, precision, dims, cdef, comps, origin, planes,
                        tuple((o, h, w) for o, (h, w) in zip(offsets,
                                                             shapes)),
                        fmt, dimx, dimy)
-
-
-def _bucket_arrays(b: _Bucket):
-    """Pack a bucket into padded device arrays.
-
-    The byte rows are flattened into dense uint32 bit-stream words on the
-    host (ops/ht_batch.prepare_streams); lane count and word width are
-    padded to powers of two so the jitted entropy kernel's executable is
-    reused across frames and geometries.
-    """
-    from ffmpeg_ht_tpu_torch.ops.ht_batch import prepare_streams_with_limits
-
-    n = len(b.rows)
-    npad = _pow2(n, _LANE_PAD)
-    lmax = max(max(len(r) for r in b.rows), 4)
-    data = np.zeros((npad, lmax), np.uint8)
-    for i, r in enumerate(b.rows):
-        data[i, :len(r)] = r
-    lcups = np.full(npad, 2, np.int64)
-    lcups[:n] = b.lcup
-    pcups = np.zeros(npad, np.int64)
-    pcups[:n] = b.pcup
-    msw, melw, vlcw, ms_lim, mel_lim = prepare_streams_with_limits(
-        data, lcups, pcups)
-
-    def vec(vals, fill, dtype=np.int32):
-        a = np.full(npad, fill, dtype)
-        a[:n] = vals
-        return a
-
-    extra = {}
-    if b.refined:
-        from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_magref_stream,
-                                                prepare_sigprop_stream)
-        # information-theoretic caps keep malformed lref from blowing up
-        # the byte matrices: SigProp consumes <= 2 bits/sample (<= 8192),
-        # MagRef <= 1 bit/sample (<= 4096); at the worst 7 payload
-        # bits/byte these prefixes/suffixes cover every reachable bit
-        SP_CAP, MR_CAP = FP.SP_CAP, FP.MR_CAP
-        lsp = np.zeros(npad, np.int64)
-        lmr = np.zeros(npad, np.int64)
-        spmax = max(min(lr, SP_CAP) for _, lr in b.dref)
-        mrmax = max(min(lr, MR_CAP) for _, lr in b.dref)
-        dsp = np.zeros((npad, max(spmax, 4)), np.uint8)
-        dmr = np.zeros((npad, max(mrmax, 4)), np.uint8)
-        for i, (dr, lr) in enumerate(b.dref):
-            ls = min(lr, SP_CAP)
-            row = np.frombuffer(dr[:ls], np.uint8)
-            dsp[i, :len(row)] = row
-            lsp[i] = ls
-            lm = min(lr, MR_CAP)
-            # suffix: the backward reader starts at byte lref-1; bytes
-            # past the stored data are zeros (oracle zero-extension)
-            tail = dr[max(lr - MR_CAP, 0):lr]
-            trow = np.frombuffer(tail, np.uint8)
-            # left-align: a truncated stream is missing TAIL bytes, which
-            # must read as zeros (oracle end-of-stream zero-extension)
-            dmr[i, :len(trow)] = trow
-            lmr[i] = lm
-        extra = dict(
-            spw=prepare_sigprop_stream(dsp, lsp),
-            mrw=prepare_magref_stream(dmr, lmr),
-            has_sp=vec([z >= 2 for z in b.zblk], 0, bool),
-            has_mr=vec([z >= 3 for z in b.zblk], 0, bool),
-            causal=vec(b.causal, 0, bool),
-        )
-
-    return dict(
-        msw=msw,
-        melw=melw,
-        vlcw=vlcw,
-        ms_lim=ms_lim,
-        mel_lim=mel_lim,
-        pLSB=vec(b.pLSB, 2),
-        **extra,
-        maxbp=vec(b.maxbp, 32),
-        magb=vec(b.magb, 8),
-        istep=vec(b.istep, 32768),
-        scale97=vec(b.scale97, 0),
-        fscale=vec(b.fscale, 0.0, np.float32),
-        dest=vec(b.dest, -1),      # -1 -> trash slot
-        stride=vec(b.stride, 0),
-        nreal=n,                   # host-side lane count (padding excluded)
-    ), n
 
 
 class Decoder:
@@ -748,12 +682,8 @@ class Decoder:
         merged: Dict[Tuple[int, int], _Bucket] = {}
         for f, bmap in enumerate(bucket_maps):
             for key, b in bmap.items():
-                m = merged.setdefault(key, _Bucket(b.w, b.h))
-                for fld in ("rows", "lcup", "pcup", "pLSB", "maxbp", "magb",
-                            "istep", "scale97", "fscale", "stride",
-                            "dref", "zblk", "causal"):
-                    getattr(m, fld).extend(getattr(b, fld))
-                m.dest.extend(d + f * total for d in b.dest)
+                merged.setdefault(key, _Bucket(b.w, b.h)).extend(
+                    b, f * total)
         prefill = np.concatenate([p[:-1] for p in prefills]
                                  + [np.zeros(1, prefills[0].dtype)])
 
@@ -1002,19 +932,10 @@ class Decoder:
         frame layout `layout` (no host sync; decoder.py:938-970): lane
         arrays per bucket in key order, and the host-decoded samples as a
         sparse prefill."""
-        keys = sorted(buckets.keys())
-        shapes, bucket_args = [], []
         with trace.span("lane_args"):
-            for key in keys:
-                args, _n = _bucket_arrays(buckets[key])
-                w, h = key[0], key[1]
-                # MagSgn budget class: must bound every real lane's maxbp
-                # (blocks > 25 went to host)
-                mb = max(buckets[key].maxbp)
-                ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-                shapes.append((-(-w // 2), -(-h // 2), w, h, ms_class,
-                               buckets[key].refined))
-                bucket_args.append(args)
+            packed = [buckets[key].pack() for key in sorted(buckets)]
+            shapes = [shape for shape, _ in packed]
+            bucket_args = [args for _, args in packed]
             nz = np.nonzero(prefill[:-1])[0]
             if len(nz):
                 pf_idx = nz.astype(np.int32)

@@ -27,14 +27,15 @@ import torch
 from ffmpeg_ht_tpu_torch.codestream import markers as mk
 from ffmpeg_ht_tpu_torch.codestream.geometry import init_tile
 from ffmpeg_ht_tpu_torch.codestream.t2 import packet_order
-from ffmpeg_ht_tpu_torch.ops.ht_batch import prepare_streams_with_limits
 from ffmpeg_ht_tpu_torch.utils import trace
 from ffmpeg_ht_tpu_torch.utils.errors import InvalidData
 
 _HOST_AREA = 256           # as the reference's models.decoder
 # the refinement bytes a lane's densified streams hold: SigProp's prefix
-# and MagRef's suffix of its Dref segment (decoder._bucket_arrays says why
-# these cover every reachable bit)
+# and MagRef's suffix of its Dref segment. These caps keep a malformed
+# lref from blowing up the byte matrices: SigProp consumes <= 2 bits a
+# sample (<= 8192), MagRef <= 1 bit a sample (<= 4096); at the worst 7
+# payload bits a byte these prefixes / suffixes cover every reachable bit
 SP_CAP, MR_CAP = 1200, 650
 
 
@@ -395,7 +396,7 @@ def _finish_cols(cols: dict) -> dict:
 @trace.timed("lane_cols")
 def build_bucket_args(fg: FlatGeometry, cols: dict, dest_shift=0,
                       prev=None):
-    """Array-level replacement of _build_batch + _bucket_arrays.
+    """Array-level replacement of _build_batch.
 
     Returns (accum) where accum collects per-bucket lane columns across
     frames (decode_batch merges by calling repeatedly with dest_shift);
@@ -489,10 +490,11 @@ def build_bucket_args(fg: FlatGeometry, cols: dict, dest_shift=0,
         li = di[lane_sel]
         b = accum["buckets"].setdefault(
             (int(u >> 40), int((u >> 24) & 0xFFFF), int(u & 0xFFFFFF)),
-            {"rows": [], "gi": [], "zbp": [], "dest": []})
+            {"rows": [], "gi": [], "pcup": [], "zbp": [], "dest": []})
         b["rows"].append((cols["body"], off[lane_sel], lcup[lane_sel],
                           lref[lane_sel], zblk[lane_sel]))
         b["gi"].append(li)
+        b["pcup"].append(lcup[lane_sel] - scup[lane_sel])
         b["zbp"].append(zbp[lane_sel])
         b["dest"].append(fg.dest[li] + dest_shift)
     return accum
@@ -502,104 +504,21 @@ def build_bucket_args(fg: FlatGeometry, cols: dict, dest_shift=0,
 def finish_buckets(accum, total):
     """(shapes, bucket_args, pf_idx, pf_val) for decoder._dispatch_args,
     as numpy arrays (``to_torch`` uploads them): the reference
-    ``finish_buckets`` without its ``jnp.asarray``."""
-    from ffmpeg_ht_tpu_torch.models import decoder as D
-
+    ``finish_buckets`` without its ``jnp.asarray``, each bucket packed by
+    ``pack_bucket`` with modDcup on every row, its pad rows included."""
     fg = accum["fg"]
     shapes, bucket_args = [], []
     for key in sorted(accum["buckets"].keys()):
         b = accum["buckets"][key]
-        w, h, wc = key
         gi = np.concatenate(b["gi"])
-        zbp = np.concatenate(b["zbp"])
-        dest = np.concatenate(b["dest"])
-        n = len(gi)
-        npad = D._pow2(n, D._LANE_PAD)
-        lmax = 4
-        for (_, _, lc, _, _) in b["rows"]:
-            if len(lc):
-                lmax = max(lmax, int(lc.max()))
-        data = np.zeros((npad, lmax), np.uint8)
-        lcups = np.full(npad, 2, np.int64)
-        pcups = np.zeros(npad, np.int64)
-        zblk_all = np.zeros(npad, np.int64)
-        lref_all = np.zeros(npad, np.int64)
-        drefs = []
-        r0 = 0
-        for (bodyb, off, lc, lr, zb) in b["rows"]:
-            for i in range(len(off)):
-                row = np.frombuffer(bodyb, np.uint8,
-                                    int(lc[i]), int(off[i]))
-                data[r0, :len(row)] = row
-                if zb[i] > 1 and lr[i] > 0:
-                    drefs.append((r0, bodyb, int(off[i] + lc[i]),
-                                  int(lr[i])))
-                r0 += 1
-            lcups[r0 - len(off):r0] = lc
-            zblk_all[r0 - len(off):r0] = zb
-            lref_all[r0 - len(off):r0] = lr
-        # modDcup + Scup (vectorized)
-        scup = ((data[np.arange(npad), lcups - 1].astype(np.int64) << 4)
-                + (data[np.arange(npad), lcups - 2] & 0x0F))
-        data[np.arange(npad), lcups - 1] = 0xFF
-        data[np.arange(npad), lcups - 2] |= 0x0F
-        pcups[:n] = lcups[:n] - scup[:n]
-        pcups[n:] = 0
-
-        (msw, melw, vlcw, ms_lim,
-         mel_lim) = prepare_streams_with_limits(data, lcups, pcups)
-
-        refined = bool((zblk_all > 1).any())
-        args = dict(
-            msw=msw, melw=melw, vlcw=vlcw, ms_lim=ms_lim, mel_lim=mel_lim,
-            pLSB=np.where(np.arange(npad) < n, 30 - _pad(zbp, npad, 0),
-                          2).astype(np.int32),
-            maxbp=np.where(np.arange(npad) < n, _pad(zbp, npad, 31) + 1,
-                           32).astype(np.int32),
-            magb=_pad(fg.magb[gi], npad, 8).astype(np.int32),
-            istep=_pad(fg.istep[gi], npad, 32768).astype(np.int32),
-            scale97=_pad(fg.scale97[gi], npad, 0).astype(np.int32),
-            fscale=_pad(fg.fscale[gi], npad, 0.0).astype(np.float32),
-            dest=_pad(dest, npad, -1).astype(np.int32),
-            stride=_pad(fg.stride[gi], npad, 0).astype(np.int32),
-            nreal=n,
-        )
-        if refined:
-            from ffmpeg_ht_tpu_torch.ops.ht_batch import (
-                prepare_magref_stream, prepare_sigprop_stream)
-            spmax = max((min(lr, SP_CAP) for (_, _, _, lr) in drefs),
-                        default=4)
-            mrmax = max((min(lr, MR_CAP) for (_, _, _, lr) in drefs),
-                        default=4)
-            dsp = np.zeros((npad, max(spmax, 4)), np.uint8)
-            dmr = np.zeros((npad, max(mrmax, 4)), np.uint8)
-            lsp = np.zeros(npad, np.int64)
-            lmr = np.zeros(npad, np.int64)
-            for (r, bodyb, o, lr) in drefs:
-                ls = min(lr, SP_CAP)
-                row = np.frombuffer(bodyb, np.uint8,
-                                    min(ls, len(bodyb) - o), o)
-                dsp[r, :len(row)] = row
-                lsp[r] = ls
-                lm = min(lr, MR_CAP)
-                start = o + max(lr - MR_CAP, 0)
-                avail = max(min(lr - max(lr - MR_CAP, 0),
-                                len(bodyb) - start), 0)
-                # left-align: missing tail bytes (truncated stream) read
-                # as zeros, matching the oracle's end-of-stream extension
-                trow = np.frombuffer(bodyb, np.uint8, avail, start)
-                dmr[r, :len(trow)] = trow
-                lmr[r] = lm
-            args.update(
-                spw=prepare_sigprop_stream(dsp, lsp),
-                mrw=prepare_magref_stream(dmr, lmr),
-                has_sp=(zblk_all >= 2)[:npad].astype(bool),
-                has_mr=(zblk_all >= 3)[:npad].astype(bool),
-                # fast_profile admits CTSY_HTJ2K_F only, never VSC
-                causal=np.zeros(npad, bool))
-        mb = int(zbp.max()) + 1 if n else 8
-        ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-        shapes.append((-(-w // 2), -(-h // 2), w, h, ms_class, refined))
+        shape, args = pack_bucket(key[:2], b["rows"], dict(
+            pcup=np.concatenate(b["pcup"]), zbp=np.concatenate(b["zbp"]),
+            magb=fg.magb[gi], istep=fg.istep[gi], scale97=fg.scale97[gi],
+            fscale=fg.fscale[gi], dest=np.concatenate(b["dest"]),
+            stride=fg.stride[gi],
+            # fast_profile admits CTSY_HTJ2K_F only, never VSC
+            causal=np.zeros(len(gi), bool)), moddcup=True)
+        shapes.append(shape)
         bucket_args.append(args)
 
     if accum["pf_idx"]:
@@ -610,6 +529,79 @@ def finish_buckets(accum, total):
         dt = np.float32 if fg.geom.transform == mk.DWT97 else np.int32
         pf_val = np.zeros(1, dt)
     return shapes, bucket_args, pf_idx, pf_val
+
+
+def pack_bucket(wh, rows, lanes, moddcup: bool):
+    """One BucketProgram bucket of w x h codeblocks: (its shape, its
+    argument dict), the arrays the JAX package's ``finish_buckets`` and
+    ``_bucket_arrays`` give, key for key and bit for bit.
+
+    rows: (body, off, lcup, lref, zblk) tuples, each for the lanes that
+    read one body: lane i's cleanup segment is ``body[off[i]:][:lcup[i]]``
+    and its Dref segment the lref[i] bytes after it (0 past the body's
+    end). lanes: the per-lane columns in row order (pcup, zbp, magb,
+    istep, scale97, fscale, dest, stride, causal). The cleanup words come
+    from one ``native.ht_prepare_v3`` pass, a pad lane reading an empty
+    body with lcup 2 and pcup 0; `moddcup` applies modDcup to every row,
+    pads included (the flat lane), or to none (the object path, whose
+    rows carry it)."""
+    from ffmpeg_ht_tpu_torch.models import decoder as D
+    from ffmpeg_ht_tpu_torch.ops.ht_batch import (prepare_magref_stream,
+                                                  prepare_sigprop_stream)
+    from ffmpeg_ht_tpu_torch.utils import native
+    bodies = [np.frombuffer(r[0], np.uint8) for r in rows]
+    counts = [len(r[1]) for r in rows]
+    off, lcup, lref, zblk = (
+        np.concatenate([np.asarray(r[k], np.int64) for r in rows])
+        for k in (1, 2, 3, 4))
+    n = len(off)
+    npad = D._pow2(n, D._LANE_PAD)
+    msw, melw, vlcw, ms_lim, mel_lim = native.ht_prepare_v3(
+        bodies + [np.zeros(0, np.uint8)], _pad(off, npad, 0),
+        _pad(lcup, npad, 2), _pad(lanes["pcup"], npad, 0),
+        np.full(npad, moddcup), counts=counts + [npad - n])
+
+    real = np.arange(npad) < n
+    zbp = np.asarray(lanes["zbp"], np.int64)
+    args = dict(
+        msw=msw, melw=melw, vlcw=vlcw, ms_lim=ms_lim, mel_lim=mel_lim,
+        pLSB=np.where(real, 30 - _pad(zbp, npad, 0), 2).astype(np.int32),
+        maxbp=np.where(real, _pad(zbp, npad, 31) + 1, 32).astype(np.int32),
+        magb=_pad(lanes["magb"], npad, 8).astype(np.int32),
+        istep=_pad(lanes["istep"], npad, 32768).astype(np.int32),
+        scale97=_pad(lanes["scale97"], npad, 0).astype(np.int32),
+        fscale=_pad(lanes["fscale"], npad, 0.0).astype(np.float32),
+        dest=_pad(lanes["dest"], npad, -1).astype(np.int32),   # trash slot
+        stride=_pad(lanes["stride"], npad, 0).astype(np.int32),
+        nreal=n,
+    )
+    refined = bool((zblk > 1).any())
+    if refined:
+        # SigProp reads a prefix and MagRef a suffix of the Dref segment,
+        # capped at SP_CAP / MR_CAP bytes; bytes past the body's end (a
+        # truncated stream) read as zeros, left-aligned
+        dref = np.nonzero((zblk > 1) & (lref > 0))[0]
+        lsp = _pad(np.where(zblk > 1, np.minimum(lref, SP_CAP), 0), npad, 0)
+        lmr = _pad(np.where(zblk > 1, np.minimum(lref, MR_CAP), 0), npad, 0)
+        dsp = np.zeros((npad, max(int(lsp.max()), 4)), np.uint8)
+        dmr = np.zeros((npad, max(int(lmr.max()), 4)), np.uint8)
+        body_of = np.repeat(np.arange(len(rows)), counts)
+        for r in dref:
+            body, o, lr = bodies[body_of[r]], off[r] + lcup[r], lref[r]
+            seg = body[o:o + lsp[r]]
+            dsp[r, :len(seg)] = seg
+            seg = body[o + max(lr - MR_CAP, 0):o + lr]
+            dmr[r, :len(seg)] = seg
+        args.update(
+            spw=prepare_sigprop_stream(dsp, lsp),
+            mrw=prepare_magref_stream(dmr, lmr),
+            has_sp=_pad(zblk >= 2, npad, False),
+            has_mr=_pad(zblk >= 3, npad, False),
+            causal=_pad(lanes["causal"], npad, 0).astype(bool))
+    mb = int(zbp.max()) + 1          # the MagSgn class bounds every lane
+    ms_class = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
+    w, h = wh
+    return (-(-w // 2), -(-h // 2), w, h, ms_class, refined), args
 
 
 def _pad(a, npad, fill):

@@ -4,8 +4,9 @@ Contract of ``ffmpeg_ht_tpu.ops.ht_scan.decode_cleanup_scan_dims`` (and of
 the Pallas kernel ``ht_scan_pallas.decode_cleanup_pallas`` that shares it):
 
   inputs  msw / melw / vlcw  (N, W_*) dense bit streams built on the host
-          by ``ops/ht_batch.prepare_streams_with_limits`` (uint32 words,
-          held here as int32 bit patterns);
+          by ``ops/ht_batch.prepare_streams_with_limits`` or, in the
+          decoder, by one native pass (``utils/native.ht_prepare_v3``)
+          (uint32 words, held here as int32 bit patterns);
           pLSB, maxbp, ms_lim, mel_lim, qws, qhs  int32 (N,);
           static qw, qh <= 32 (the lane raster is (2qh, 2qw)) and
           ms_class, a bound on every decoded lane's maxbp.

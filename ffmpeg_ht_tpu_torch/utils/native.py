@@ -123,32 +123,41 @@ def ht_prepare_streams(data: np.ndarray, lcup: np.ndarray,
     return out + (ms_lim, mel_lim) if want_limits else out
 
 
-def ht_prepare_v3(bodies, off, lcup, pcup, moddcup):
-    """The v3 program's stream words straight from the frames' codestream
-    bodies, as ``ht_prepare_streams(..., want_limits=True)`` gives them for
-    the byte matrix of these rows: (msw, melw, vlcw, ms_lim, mel_lim).
+def ht_prepare_v3(bodies, off, lcup, pcup, moddcup, counts=None):
+    """The stream words straight from codestream bodies, as
+    ``ht_prepare_streams(..., want_limits=True)`` gives them for the byte
+    matrix of these rows: (msw, melw, vlcw, ms_lim, mel_lim).
 
-    bodies: F uint8 arrays; off, lcup, pcup: (F * n,) int64, row f * n + i
-    reading ``bodies[f][off + j]`` for j < lcup (0 past the body's end);
-    moddcup: (F * n,) bool, the rows whose last two bytes take modDcup.
+    bodies: uint8 arrays; off, lcup, pcup: (rows,) int64, a row of body k
+    reading ``bodies[k][off + j]`` for j < lcup (0 past the body's end);
+    moddcup: (rows,) bool, the rows whose last two bytes take modDcup.
+    Without `counts` the rows split evenly, rows / len(bodies) to a body
+    (the v3 program's frames); with it, body k holds the next counts[k]
+    rows (a BucketProgram bucket's lanes from several bodies).
     One pass finds each stream's extent, one writes the words at the width
     ``ht_batch._trim_pow2`` would give them."""
     from ffmpeg_ht_tpu_torch.ops.ht_batch import _pow2_width
     lib = load()
     bodies = [np.ascontiguousarray(b, np.uint8) for b in bodies]
-    F = len(bodies)
     rows = len(lcup)
-    if F == 0 or rows % F:
-        raise ValueError(f"{rows} rows do not split into {F} frames")
     ptrs = np.array([b.ctypes.data for b in bodies], np.uintp)
     blen = np.array([len(b) for b in bodies], np.int64)
+    if counts is not None:
+        if len(counts) != len(bodies) or sum(counts) != rows:
+            raise ValueError(f"counts {list(counts)} do not cover {rows} "
+                             "rows")
+        ptrs, blen = np.repeat(ptrs, counts), np.repeat(blen, counts)
+    elif not bodies or rows % len(bodies):
+        raise ValueError(f"{rows} rows do not split into {len(bodies)} "
+                         "frames")
+    F = len(ptrs)
     off = np.ascontiguousarray(off, np.int64)
     lcup = np.ascontiguousarray(lcup, np.int64)
     pcup = np.ascontiguousarray(pcup, np.int64)
     moddcup = np.ascontiguousarray(moddcup, np.uint8)
     if not len(off) == len(pcup) == len(moddcup) == rows:
         raise ValueError("row columns of unequal length")
-    head = (ptrs.ctypes.data, blen.ctypes.data, F, rows // F,
+    head = (ptrs.ctypes.data, blen.ctypes.data, F, rows // F if F else 0,
             off.ctypes.data, lcup.ctypes.data, pcup.ctypes.data,
             moddcup.ctypes.data)
     ms_lim = np.empty(rows, np.int32)

@@ -3,10 +3,12 @@
 ``ffmpeg_ht_tpu``'s ``Decoder().decode`` must return the bytes of
 ``ffmpeg_ht_tpu_torch``'s ``Decoder(device="cpu").decode`` on the
 corpus's PPT+POC+layers stream (both on the v2 bucketed path) and its
-signed 10-bit stream (both on the v3 program). Two streams only: each
-compiles a JAX program geometry (~55 s cold for the v2 one, ~25 s for
-the v3 one on a CPU host), so they sit in a file of their own that xdist
-puts beside the other conformance files.
+signed 10-bit stream (both on the v3 program). These two read the JAX
+program itself; every other corpus stream is held against the JAX host
+decoder (tests/test_torch_conformance.py). Each compiles a JAX program
+geometry (~97 s cold for the v2 one, ~34 s for the v3 one on an 8-core
+CPU host with six test workers), so they sit in a file of their own that
+xdist puts beside the other conformance files.
 """
 
 import dataclasses

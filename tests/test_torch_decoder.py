@@ -1,20 +1,23 @@
 """The port's slice end to end on the CPU vs the JAX package.
 
 ``ffmpeg_ht_tpu_torch.models.decoder.Decoder(device="cpu")`` must return
-the same bytes as ``ffmpeg_ht_tpu``'s ``Decoder`` and the source image in
-the negotiated pixel format, for v3-eligible streams (96x128,
-nreslevels=3, 32x32 codeblocks: every DWT level takes the band-direct
-path). Also pinned: the port's ``finish_v3`` arrays (5/3, integer and
-float 9/7), the prefill scatter with its trash slot against the JAX
-program, the routing of streams outside the slice, and that the port
-imports neither ``jax`` nor the JAX package. The frame write: each
-pixel format's ``frame_layout`` through ``decode``, ``decode_stream``
-and ``decode_batch`` against the JAX package's host decoder (rgb24,
-rgb48le, gray, gray16le, ya8, yuv420p, xyz12le, tiles with an image
-offset, a reduced resolution), the plain write versions in a layout
-against ``_write_frame_prescaled``, the identity layout, and the copy
-out of the fetched buffer. The 9/7 path, the flat-DWT fallback and the
-batch entry points: tests/test_torch_decoder97.py.
+the same bytes as ``ffmpeg_ht_tpu``'s host decoder (which the JAX suite
+holds byte for byte to its ``Decoder``) and the source image in the
+negotiated pixel format, for v3-eligible streams (96x128, nreslevels=3,
+32x32 codeblocks: every DWT level takes the band-direct path). Also
+pinned: the port's ``finish_v3`` arrays (5/3, integer and float 9/7),
+the prefill scatter with its trash slot against the JAX program (one v3
+program, the gray stream's) and the layout of tiles at an image offset
+against the JAX ``Decoder``'s batch (one v2 program), the routing of
+streams outside the slice, and that the port imports neither ``jax`` nor
+the JAX package. The frame write: each pixel format's ``frame_layout``
+through ``decode``, ``decode_stream`` and ``decode_batch`` against the
+JAX package's host decoder (rgb24, rgb48le, gray, gray16le, ya8,
+yuv420p, xyz12le, tiles with an image offset, a reduced resolution), the
+plain write versions in a layout against ``_write_frame_prescaled``, the
+identity layout, and the copy out of the fetched buffer. The 9/7 path,
+the flat-DWT fallback and the batch entry points:
+tests/test_torch_decoder97.py.
 """
 
 import dataclasses
@@ -79,7 +82,10 @@ def _source_bytes(name, fmt_depth):
 
 
 @pytest.mark.parametrize("name", list(IMAGES))
-def test_decoder_matches_jax_and_source(name, dec, jax_dec):
+def test_decoder_matches_jax_and_source(name, dec):
+    """Lossless streams: the JAX package's host decoder, which its suite
+    holds byte for byte to its ``Decoder`` (tests/test_tpu_decoder.py),
+    and the source pin the bytes; no JAX program is compiled."""
     data = STREAMS[name]
     v3_before = dec.v3_frames
     launches = (ht_scan.ht_vlc_pass.launches, ht_scan.ht_magsgn_pass.launches,
@@ -89,7 +95,7 @@ def test_decoder_matches_jax_and_source(name, dec, jax_dec):
     assert launches == (ht_scan.ht_vlc_pass.launches,
                         ht_scan.ht_magsgn_pass.launches,
                         mct_cuda.rct_writeframe.launches)
-    want = jax_dec.decode(data)
+    want = jax_host.decode_frame(data, bitexact=True)
     # each package has its own PixFmt class: compare the fields
     assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
     assert got.tobytes() == want.tobytes()
@@ -223,17 +229,18 @@ def test_u_bound_violation_raises_invalid_data(dec):
         dec._finish(hdr, fg.tiles, fg.geom, (packed, layout))
 
 
-def test_outside_slice_raises_not_host(dec, jax_dec):
+def test_outside_slice_raises_not_host(dec):
     """A stream with refinement passes leaves the v3 lane: it decodes on
     the device through the v2 bucketed path (never on the host oracle),
-    equal to the JAX Decoder and to the source."""
+    equal to the JAX package's host decoder and to the source."""
     img = IMAGES["gray8"][0]
     data = encode_frame_htj2k(img, refinement=True, ht_layers=2, **ENC)
     counts = (dec.v2_frames, dec.v3_frames, dec.host_frames)
     got = dec.decode(data)
     assert (dec.v2_frames, dec.v3_frames, dec.host_frames) == (
         counts[0] + 1, counts[1], counts[2])
-    assert got.tobytes() == jax_dec.decode(data).tobytes() == img.tobytes()
+    assert got.tobytes() == jax_host.decode_frame(
+        data, bitexact=True).tobytes() == img.tobytes()
 
 
 def test_legacy_stream_takes_host_oracle(dec, jax_dec):

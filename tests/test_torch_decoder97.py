@@ -2,21 +2,21 @@
 the JAX package.
 
 ``Decoder(device="cpu", bitexact=True)`` (integer 9/7, integer ICT) must
-return the bytes of the JAX ``Decoder()`` and of the port's host oracle
-``host_decoder.decode_frame(bitexact=True)``. Streams are 96x128 with
-32x32 codeblocks and ``nreslevels=3``, which keeps every DWT level at
-least 8x8 (band-direct). The float path (``bitexact=False``) is in
+return the bytes of the JAX package's host decoder with ``bitexact=True``
+(which its suite holds byte for byte to its ``Decoder()``,
+tests/test_tpu_decoder.py) and of the port's host oracle. Streams are
+96x128 with 32x32 codeblocks and ``nreslevels=3``, which keeps every DWT
+level at least 8x8 (band-direct). The float path (``bitexact=False``),
+the one that compiles a JAX program, is in
 tests/test_torch_decoder97_float.py and the flat-DWT fallback in
-tests/test_torch_flat_dwt.py: each file compiles its own JAX geometries,
-so that the compiles spread over the test workers. This file compiles two,
-the integer gray and ICT streams; the batch streams are held against the
-frame-by-frame decode and the host oracle.
+tests/test_torch_flat_dwt.py. This file compiles no JAX program; the batch
+streams are held against the frame-by-frame decode and the host oracle.
 """
 
 import numpy as np
 import pytest
 
-from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
+from ffmpeg_ht_tpu.models import host_decoder as jax_host
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu_torch.models import host_decoder
@@ -43,11 +43,6 @@ def dec_float():
     return Decoder(device="cpu", bitexact=False)
 
 
-@pytest.fixture(scope="module")
-def jax_int():
-    return JaxDecoder()
-
-
 def _launches():
     return (ht_scan.ht_vlc_pass.launches, ht_scan.ht_magsgn_pass.launches,
             mct_cuda.rct_writeframe.launches,
@@ -69,10 +64,11 @@ def _ints(frame):
 
 
 @pytest.mark.parametrize("name", ["gray8", "rgb8_ict"])
-def test_decoder_97int_matches_jax_and_host(name, dec_int, jax_int):
+def test_decoder_97int_matches_jax_and_host(name, dec_int):
     data = STREAMS[name]
     got = _decode_v3(dec_int, data)
-    assert np.array_equal(got, _ints(jax_int.decode(data)))
+    assert np.array_equal(got, _ints(jax_host.decode_frame(
+        data, bitexact=True)))
     assert np.array_equal(got, _ints(host_decoder.decode_frame(
         data, bitexact=True)))
 

@@ -4,15 +4,16 @@ Refined HTONLY streams (SigProp / MagRef passes in a second HT quality
 layer) at the port tests' small geometry (96x128, nreslevels=3, 32x32
 codeblocks) leave the v3 lane. ``Decoder(device="cpu")`` of the port must
 decode them on its device path (``v2_frames``), byte-identical to the JAX
-``Decoder()`` and to the source: through the flat lane
+package's host decoder (which its suite holds byte for byte to its
+``Decoder``) and to the source: through the flat lane
 (``build_bucket_args`` / ``finish_buckets``) for the fast-profile streams,
-through the object path (``_build_batch`` / ``_bucket_arrays``) for the
-vertically stripe-causal one; ``reduction_factor=1`` against the JAX
-``Decoder`` with the same option. One JAX bucket geometry serves all of
-those. The RGB stream, ``max_layers=1`` (whose JAX device decode would
-compile another set of kernels) and the batches are held against the host
-oracles and the sources. The lane arrays, the state the host hands the
-device, equal the JAX functions' field by field.
+through the object path (``_build_batch`` / ``_Bucket.pack``) for the
+vertically stripe-causal one; ``reduction_factor=1`` with the same option.
+The streams are lossless, so no JAX program is compiled. The RGB stream,
+``max_layers=1`` and the batches are held against the host oracles and
+the sources. The lane arrays, the state the host hands the device, equal
+the JAX functions' (``finish_buckets``, ``_bucket_arrays``) field by
+field, pad lanes included.
 """
 
 import dataclasses
@@ -54,11 +55,12 @@ GRAY_B_VSC = encode_frame_htj2k(GRAY_B, refinement=True, ht_layers=2,
                                 causal=True, **ENC)
 RGB10_L2 = encode_frame_htj2k(RGB10, depth=10, mct=True, refinement=True,
                               ht_layers=2, **ENC)
-
-
-@pytest.fixture(scope="module")
-def jax_dec():
-    return jax_decoder.Decoder()
+# the right half quieter: shorter streams, so some of its lanes share a
+# bucket with fewer lanes than GRAY's
+GRAY_HALF = GRAY.copy()
+GRAY_HALF[:, 64:] = GRAY_HALF[:, 64:] // 8 + 100
+GRAY_HALF_L2 = encode_frame_htj2k(GRAY_HALF, refinement=True, ht_layers=2,
+                                  **ENC)
 
 
 def _counts(dec):
@@ -71,7 +73,7 @@ def _launches():
 
 
 @pytest.mark.parametrize("name", list(STREAMS))
-def test_v2_decode_matches_jax_and_source(name, jax_dec):
+def test_v2_decode_matches_jax_and_source(name):
     data = STREAMS[name]
     dec = Decoder(device="cpu")
     before = _launches()
@@ -79,7 +81,7 @@ def test_v2_decode_matches_jax_and_source(name, jax_dec):
     assert _counts(dec) == (1, 0, 0) and _launches() == before
     # the causal stream leaves the fast profile: the object path
     assert port_fp.fast_profile(parse_codestream(data)) == (name != "vsc")
-    want = jax_dec.decode(data)
+    want = jax_host.decode_frame(data, bitexact=True)
     assert dataclasses.astuple(got.fmt) == dataclasses.astuple(want.fmt)
     assert got.tobytes() == want.tobytes() == GRAY.tobytes()
 
@@ -98,7 +100,7 @@ def test_v2_reduction_factor_matches_jax():
     dec = Decoder(device="cpu", reduction_factor=1)
     got = dec.decode(data)
     assert _counts(dec) == (1, 0, 0) and (got.width, got.height) == (64, 48)
-    want = jax_decoder.Decoder(reduction_factor=1).decode(data)
+    want = jax_host.decode_frame(data, bitexact=True, reduction_factor=1)
     assert got.tobytes() == want.tobytes()
     assert got.tobytes() == port_host.decode_frame(
         data, bitexact=True, reduction_factor=1).tobytes()
@@ -138,7 +140,7 @@ def test_v2_decode_batch_is_one_dispatch(pair, monkeypatch):
                                             GRAY_B.tobytes()]
 
 
-def _flat_buckets(fp, parse, data_list):
+def _flat_accum(fp, parse, data_list):
     hdrs = [parse(d, bitexact=True) for d in data_list]
     fg = fp.FlatGeometry(hdrs[0])
     accum = None
@@ -146,7 +148,11 @@ def _flat_buckets(fp, parse, data_list):
         accum = fp.build_bucket_args(fg, fp.parse_frame_flat(hdr, fg),
                                      dest_shift=f * fg.geom.total,
                                      prev=accum)
-    return fp.finish_buckets(accum, len(hdrs) * fg.geom.total)
+    return accum, len(hdrs) * fg.geom.total
+
+
+def _flat_buckets(fp, parse, data_list):
+    return fp.finish_buckets(*_flat_accum(fp, parse, data_list))
 
 
 def _assert_bucket_args_equal(got, want):
@@ -159,11 +165,19 @@ def _assert_bucket_args_equal(got, want):
         assert got[k].dtype == w.dtype and np.array_equal(got[k], w), k
 
 
-@pytest.mark.parametrize("data", [[STREAMS["gray8_l2"]],
-                                  [STREAMS["gray8_l3"], GRAY_B_L2],
-                                  [RGB10_L2]],
-                         ids=["gray8_l2", "two_frames", "rgb10"])
-def test_finish_buckets_matches_jax(data):
+@pytest.mark.parametrize("data,uneven", [
+    ([STREAMS["gray8_l2"]], False),
+    ([STREAMS["gray8_l3"], GRAY_B_L2], False),
+    ([RGB10_L2], False),
+    ([STREAMS["gray8_l2"], GRAY_HALF_L2], True)],
+    ids=["gray8_l2", "two_frames", "rgb10", "uneven_frames"])
+def test_finish_buckets_matches_jax(data, uneven):
+    """Every array of every bucket, pad lanes included; `uneven`: a
+    bucket holds lanes of two frames, in different numbers, and pads."""
+    accum, _total = _flat_accum(port_fp, parse_codestream, data)
+    counts = [[len(r[1]) for r in b["rows"]]
+              for b in accum["buckets"].values()]
+    assert uneven == any(len(set(c)) == 2 and sum(c) % 8 for c in counts)
     got = _flat_buckets(port_fp, parse_codestream, data)
     want = _flat_buckets(jax_fp, jax_parse, data)
     assert got[0] == want[0] and any(s[5] for s in got[0])   # refined
@@ -181,8 +195,9 @@ def _object_buckets(parse, init, t2, mod, data):
         tiles.append(init(hdr, tileno))
         t2(hdr, tileno, tiles[-1], 0)
     geom, buckets, prefill = mod._build_batch(hdr, tiles)
-    return geom, {k: mod._bucket_arrays(b)[0] for k, b in buckets.items()}, \
-        prefill
+    pack = (lambda b: b.pack()[1]) if mod is port_decoder else \
+        (lambda b: mod._bucket_arrays(b)[0])
+    return geom, {k: pack(b) for k, b in buckets.items()}, prefill
 
 
 def test_bucket_arrays_match_jax():

@@ -5,14 +5,17 @@ An RGB 8-bit 9/7 + ICT stream with SigProp / MagRef passes (64x64, 2
 resolution levels, 32x32 codeblocks: one bucket shape, so that the JAX
 side compiles few kernels; kept in its own file so that they compile on
 their own xdist worker). ``Decoder(device="cpu", bitexact=True)`` of the
-port must be byte-identical to the JAX ``Decoder()`` and to the port's
-integer host oracle; ``bitexact=False`` within 1 LSB of the JAX
-``Decoder(bitexact=False)`` and of the port's float host oracle.
+port must be byte-identical to the JAX package's integer host decoder
+(which its suite holds byte for byte to its ``Decoder()``) and to the
+port's; ``bitexact=False`` within 1 LSB of the JAX
+``Decoder(bitexact=False)``, the one JAX program this file compiles, and
+of the port's float host oracle.
 """
 
 import numpy as np
 import pytest
 
+from ffmpeg_ht_tpu.models import host_decoder as jax_host
 from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
 from ffmpeg_ht_tpu_torch.models import host_decoder as port_host
 from ffmpeg_ht_tpu_torch.models.decoder import Decoder
@@ -34,7 +37,8 @@ def test_v2_ict_matches_jax_and_host_oracle(bitexact):
     dec = Decoder(device="cpu", bitexact=bitexact)
     got = dec.decode(ICT)
     assert (dec.v2_frames, dec.v3_frames, dec.host_frames) == (1, 0, 0)
-    want = JaxDecoder(bitexact=bitexact).decode(ICT)
+    want = jax_host.decode_frame(ICT, bitexact=True) if bitexact \
+        else JaxDecoder(bitexact=False).decode(ICT)
     host = port_host.decode_frame(ICT, bitexact=bitexact)
     assert got.fmt.name == want.fmt.name == host.fmt.name == "rgb24"
     if bitexact:

@@ -4,14 +4,16 @@ A 96x128 stream with 32x32 codeblocks and ``nreslevels=6`` has its lowest
 DWT level at 8x6, so ``V3Program`` composes whole planes and runs
 ``dwt_decode_flat`` instead of the band-direct lifting. The reversible
 5/3 + RCT stream must return its source; the integer 9/7 + ICT stream the
-bytes of the JAX ``Decoder()``. Both must equal the host oracle and go
-through the device program. This file compiles one JAX geometry.
+bytes of the JAX package's host decoder with ``bitexact=True`` (which its
+suite holds byte for byte to its ``Decoder()``). Both must equal the
+port's host oracle and go through the device program. This file compiles
+no JAX program.
 """
 
 import numpy as np
 import pytest
 
-from ffmpeg_ht_tpu.models.decoder import Decoder as JaxDecoder
+from ffmpeg_ht_tpu.models import host_decoder as jax_host
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
 from ffmpeg_ht_tpu_torch.models import host_decoder
@@ -30,13 +32,8 @@ def dec_int():
     return Decoder(device="cpu", bitexact=True)
 
 
-@pytest.fixture(scope="module")
-def jax_int():
-    return JaxDecoder()
-
-
 @pytest.mark.parametrize("name", ["flat_53_rct", "flat_97_ict"])
-def test_flat_dwt_fallback(name, dec_int, jax_int):
+def test_flat_dwt_fallback(name, dec_int):
     data = FLAT_STREAMS[name]
     got = _decode_v3(dec_int, data)
     fg = dec_int._fast_geom(parse_codestream(data, bitexact=True))
@@ -46,4 +43,5 @@ def test_flat_dwt_fallback(name, dec_int, jax_int):
     if name == "flat_53_rct":              # lossless: the source itself
         assert np.array_equal(got, RGB[0].reshape(-1))
     else:
-        assert np.array_equal(got, _ints(jax_int.decode(data)))
+        assert np.array_equal(got, _ints(jax_host.decode_frame(
+            data, bitexact=True)))

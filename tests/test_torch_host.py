@@ -421,6 +421,40 @@ def test_direct_v3_pass_matches_the_byte_matrix_prep(kind, frames):
         assert np.array_equal(g, w)
 
 
+@pytest.mark.parametrize("kind", PACK_KINDS)
+def test_direct_pass_reads_runs_of_rows_from_each_body(kind):
+    """With ``counts``, body k holds the next counts[k] rows, in runs of
+    unequal length, one of them empty, and an empty body's rows read
+    zeros (a BucketProgram bucket's pad lanes): the words and limits of
+    ht_prepare_streams on the byte matrix of the same rows."""
+    data, lcup, pcup = _rows(kind, n=24)
+    counts = [7, 0, 12, 5]
+    bodies, off, r = [], np.zeros(len(data), np.int64), 0
+    for c in counts[:-1]:
+        parts, pos = [], 0
+        for i in range(r, r + c):
+            parts.append(data[i, :lcup[i]])
+            off[i], pos = pos, pos + lcup[i]
+        bodies.append(np.concatenate(parts) if parts
+                      else np.zeros(0, np.uint8))
+        r += c
+    bodies.append(np.zeros(0, np.uint8))
+    lcup[r:], pcup[r:] = 2, 0
+    mod = np.arange(len(data)) % 3 == 0
+    ref = np.zeros_like(data)
+    for i in range(r):
+        ref[i, :lcup[i]] = data[i, :lcup[i]]
+    for i in np.nonzero(mod & (lcup >= 2))[0]:
+        ref[i, lcup[i] - 1] = 0xFF
+        ref[i, lcup[i] - 2] |= 0x0F
+    want = native.ht_prepare_streams(ref, lcup, pcup, want_limits=True)
+    got = native.ht_prepare_v3(bodies, off, lcup, pcup, mod, counts=counts)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    with pytest.raises(ValueError):
+        native.ht_prepare_v3(bodies, off, lcup, pcup, mod, counts=[7, 12])
+
+
 def test_direct_v3_pass_rejects_bad_rows():
     body = np.zeros(8, np.uint8)
     one = np.ones(1, np.int64)

@@ -10,8 +10,9 @@ through its reference: tests/test_ht_scan_pallas.py pins
 
 Corpora: the mixed-shape, ragged, inert-lane bucket of
 tests/test_ht_scan_dims.py and the 12-bit case of
-tests/test_ht_scan_pallas.py, rebuilt from the same seeds so the JAX
-executables are the ones those tests compile.
+tests/test_ht_scan_pallas.py, rebuilt from the same seeds. Both run the
+jitted ``decode_cleanup_scan_dims`` at one shape class (lanes, word
+widths, ms_class; ``_shared``), so the JAX kernel compiles once a file.
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ from ffmpeg_ht_tpu.models import fastpath as FP
 from ffmpeg_ht_tpu.models.encoder import encode_frame_htj2k
 from ffmpeg_ht_tpu.ops.ht_batch import prepare_streams_batch, stream_limits
 from ffmpeg_ht_tpu.ops.ht_enc import encode_cleanup
-from ffmpeg_ht_tpu.ops.ht_scan import _cleanup_impl, decode_cleanup_scan_dims
+from ffmpeg_ht_tpu.ops.ht_scan import decode_cleanup_scan_dims
 from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream as \
     port_parse
 from ffmpeg_ht_tpu_torch.models import fastpath as port_fp
@@ -104,21 +105,81 @@ def _dims_corpus():
     return arrays, min(zbp + 1, 25)
 
 
+def _highdepth_corpus():
+    """12-bit frame lanes (tests/test_ht_scan_pallas.py high-depth case):
+    the port's v3 lane arrays, held equal to the JAX package's here, and
+    their ms_class."""
+    rng = np.random.default_rng(2718)
+    rng.integers(0, 256, (96, 128), dtype=np.uint8)   # that file's 1st draw
+    img = rng.integers(0, 4096, (96, 128), dtype=np.uint16)
+    data = encode_frame_htj2k(img, depth=12)
+    hdr = parse_codestream(data, bitexact=True)
+    fg = FP.FlatGeometry(hdr)
+    fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
+    phdr = port_parse(data, bitexact=True)
+    pfg = port_fp.FlatGeometry(phdr)
+    pfc = port_fp.build_v3_frame(pfg, port_fp.parse_frame_flat(phdr, pfg))
+    args, _ = port_fp.finish_v3_numpy(pfg, [pfc], pfg.geom.total)
+    plan = ASM.build_plan(fg)
+    assert max(plan.bw, plan.bh) <= 64        # fits the 32x32-quad raster
+    mb = int(fc["maxbp"][fc["qws"] > 0].max())
+    msc = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
+    jargs, _ = FP.finish_v3(fg, [fc], fg.geom.total)
+    for k in KEYS:
+        assert np.array_equal(args[k], np.asarray(jargs[k])), k
+    return {k: args[k] for k in KEYS}, msc
+
+
+# Both corpora run at one shape class, so the JAX kernel compiles once: the
+# 32x32-quad raster, the 12-bit lanes' MagSgn class, and the lanes and word
+# widths of the larger corpus. Added lanes are inert (qws = qhs = 0, zero
+# words, the pLSB / maxbp / limits of the decoder's inert lanes); added word
+# columns are zeros, as the reader returns past a stream's end.
+SHARED_MSC = 16
+
+
+def _shared(arrays, msc):
+    """`arrays` at the shared shape class (a new dict)."""
+    assert msc <= SHARED_MSC
+    n, widths = _SHARED_SHAPE
+    m = len(arrays["qws"])
+    fill = dict(pLSB=2, maxbp=32, ms_lim=2, mel_lim=2, qws=0, qhs=0)
+    out = {}
+    for k, a in arrays.items():
+        if k in widths:
+            b = np.zeros((n, widths[k]), a.dtype)
+            b[:m, :a.shape[1]] = a
+        else:
+            b = np.full(n, fill[k], a.dtype)
+            b[:m] = a
+        out[k] = b
+    return out
+
+
+def _shared_shape():
+    corpora = [_dims_corpus()[0], _highdepth_corpus()[0]]
+    return (max(len(a["qws"]) for a in corpora),
+            {k: max(a[k].shape[1] for a in corpora)
+             for k in ("msw", "melw", "vlcw")})
+
+
+_SHARED_SHAPE = _shared_shape()
+
+
 @pytest.mark.parametrize("tight", [False, True],
                          ids=["valid", "u_bound_violated"])
 def test_cleanup_ref_dims_corpus(tight):
     """Mixed shapes (64x64 .. 1x64), ragged lanes and inert lanes in one
     32x32-quad launch. `tight` lowers maxbp on some lanes so their U bound
     fails: ok must then agree lane by lane."""
-    arrays, msc = _dims_corpus()
+    arrays = _shared(*_dims_corpus())
     if tight:
-        arrays["maxbp"] = arrays["maxbp"].copy()
         arrays["maxbp"][[0, 3, 7]] = 2
     args = [arrays[k] for k in KEYS]
     want = decode_cleanup_scan_dims(*(jnp.asarray(a) for a in args),
-                                    qw=32, qh=32, ms_class=msc)
+                                    qw=32, qh=32, ms_class=SHARED_MSC)
     got = port.decode_cleanup_scan_dims(*(_tt(a) for a in args), 32, 32,
-                                        msc)
+                                        SHARED_MSC)
     good = _assert_same(want, got)
     assert good.all() != tight
     # inert lanes emit zeros and stay ok
@@ -131,9 +192,9 @@ def test_vlc_pass_ref_sig_matches_jax():
     """The VLC pass alone: the ``sp`` field of its records is the JAX
     package's quad significance on every lane of the dims corpus, and
     quads outside a lane's (qws, qhs) hold 0."""
-    arrays, msc = _dims_corpus()
+    arrays = _shared(*_dims_corpus())
     want = decode_cleanup_scan_dims(*(jnp.asarray(arrays[k]) for k in KEYS),
-                                    qw=32, qh=32, ms_class=msc)
+                                    qw=32, qh=32, ms_class=SHARED_MSC)
     rec = port.vlc_pass_ref(*(_tt(arrays[k]) for k in
                               ("melw", "vlcw", "mel_lim", "qws", "qhs")),
                             32, 32).numpy()
@@ -147,31 +208,18 @@ def test_vlc_pass_ref_sig_matches_jax():
 
 
 def test_cleanup_ref_highdepth():
-    """12-bit frame lanes (tests/test_ht_scan_pallas.py high-depth case)."""
-    rng = np.random.default_rng(2718)
-    rng.integers(0, 256, (96, 128), dtype=np.uint8)   # that file's 1st draw
-    img = rng.integers(0, 4096, (96, 128), dtype=np.uint16)
-    data = encode_frame_htj2k(img, depth=12)
-    hdr = parse_codestream(data, bitexact=True)
-    fg = FP.FlatGeometry(hdr)
-    fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
-    phdr = port_parse(data, bitexact=True)
-    pfg = port_fp.FlatGeometry(phdr)
-    pfc = port_fp.build_v3_frame(pfg, port_fp.parse_frame_flat(phdr, pfg))
-    args, _ = port_fp.finish_v3_numpy(pfg, [pfc], pfg.geom.total)
-    plan = ASM.build_plan(fg)
-    qw, qh = plan.bw // 2, plan.bh // 2
-    mb = int(fc["maxbp"][fc["qws"] > 0].max())
-    msc = next(c for c in (8, 12, 16, 20, 25) if mb <= c)
-    jargs, _ = FP.finish_v3(fg, [fc], fg.geom.total)
-    for k in KEYS:
-        assert np.array_equal(args[k], np.asarray(jargs[k])), k
-    a = [jargs[k] for k in KEYS]
-    want = _cleanup_impl(*a[:7], qw=qw, qh=qh, ms_class=msc,
-                         dims=(a[7], a[8]))
-    got = port.decode_cleanup_scan_dims(*(_tt(args[k]) for k in KEYS), qw,
-                                        qh, msc)
-    assert _assert_same(want, got).all()
+    """12-bit frame lanes (tests/test_ht_scan_pallas.py high-depth case),
+    through the jitted JAX kernel at the dims corpus' shape class: their
+    own (qws, qhs) inside its 32x32-quad raster."""
+    arrays, msc = _highdepth_corpus()
+    real = len(arrays["qws"])
+    arrays = _shared(arrays, msc)
+    want = decode_cleanup_scan_dims(*(jnp.asarray(arrays[k]) for k in KEYS),
+                                    qw=32, qh=32, ms_class=SHARED_MSC)
+    got = port.decode_cleanup_scan_dims(*(_tt(arrays[k]) for k in KEYS), 32,
+                                        32, SHARED_MSC)
+    good = _assert_same(want, got)
+    assert good.all() and got[0].numpy()[:real].any()
 
 
 def test_cpu_tensors_never_launch_the_kernel():

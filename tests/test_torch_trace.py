@@ -207,8 +207,9 @@ def test_long_tail_codeblock_is_an_oracle_span_and_counted(tracer):
 def test_direct_prep_counts_the_v3_lanes_and_no_v2_lane(frames, tracer,
                                                        entry):
     """A traced v3 decode counts ``direct_prep_lanes`` = N lanes a frame
-    (the lane build's direct pass from the bodies); a v2 decode, whose
-    refinement lanes take the byte-matrix prep, counts none."""
+    (the v3 lane build's direct pass from the bodies); a v2 decode, whose
+    buckets ``pack_bucket`` packs with the same pass, counts none: the
+    counter is the v3 lane build's."""
     imgs, streams = frames
     hdr = parse_codestream(streams[0], bitexact=True)
     n = FP.FlatGeometry(hdr).ncblks
