@@ -361,6 +361,7 @@ def _laps(dec, streams, bitexact: bool, dev):
     layout = dec._layout(hdrs, fg.geom)
     (prog,) = [p for (F, _c, _i, lay), p in fg.v3_progs.items()
                if F == len(streams) and lay == layout]
+    stage = FP.Staging(dev)
     laps, val = {}, None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -371,9 +372,9 @@ def _laps(dec, streams, bitexact: bool, dev):
                                      for h in hdrs]),
             ("build_v3_frame", lambda cols: [FP.build_v3_frame(fg, c)
                                              for c in cols]),
-            ("stream_prep", lambda fcs: finish_v3_numpy(fg, fcs,
-                                                        fg.geom.total)[0]),
-            ("upload", lambda a: {k: to_torch(v, dev) for k, v in a.items()}),
+            ("stream_prep", lambda fcs: finish_v3_numpy(
+                fg, fcs, fg.geom.total, stage.alloc)[1]),
+            ("upload", lambda F: stage.views(to_torch(stage.host, dev), F)),
             ("device_program", lambda a: prog(**a)),
             ("fetch", lambda p: (p.cpu(), layout)),
             ("write_frame", lambda p: dec._split_frames(
@@ -2696,9 +2697,10 @@ def main(argv=None) -> int:
     fg = FP.FlatGeometry(hdr)
     plan = ASM.build_plan(fg)
     fc = FP.build_v3_frame(fg, FP.parse_frame_flat(hdr, fg))
-    args_np, _ = finish_v3_numpy(fg, [fc], fg.geom.total)
+    stage = FP.Staging(dev)
+    args_np, _ = finish_v3_numpy(fg, [fc], fg.geom.total, stage.alloc)
     prep_ms = (time.perf_counter() - t0) * 1e3
-    args = {k: to_torch(v, dev) for k, v in args_np.items()}
+    args = stage.views(to_torch(stage.host, dev), 1)
     qw, qh = plan.bw // 2, plan.bh // 2
     mb = int(fc["maxbp"][fc["qws"] > 0].max())
     msc = next(c for c in (8, 12, 16, 20, 25) if mb <= c)

@@ -909,8 +909,11 @@ class Decoder:
                   layout: FrameLayout):
         """(the V3Program for ``build_v3_frame`` columns `frames` at
         `ms_class`, cached in ``fg.v3_progs`` by frame count, class,
-        identity step and frame layout; its arguments on `device`)."""
-        args, F = finish_v3_numpy(fg, frames, fg.geom.total)
+        identity step and frame layout; its arguments on `device`, written
+        into one staging buffer and sent by ``to_torch`` in one copy,
+        ``FP.Staging``)."""
+        stage = FP.Staging(device)
+        args, F = finish_v3_numpy(fg, frames, fg.geom.total, stage.alloc)
         # lossless frames: istep is uniformly the identity 32768
         no_istep = bool(np.all(args["istep"] == 32768))
         key = (F, ms_class, no_istep, layout)
@@ -924,7 +927,7 @@ class Decoder:
                                  n_pad=fg.ncblks, frames=F, layout=layout,
                                  no_istep=no_istep)
             fg.v3_progs[key] = prog
-        return prog, {k: to_torch(v, device) for k, v in args.items()}
+        return prog, stage.views(to_torch(stage.host, device), F)
 
     def _dispatch(self, geom: _Geometry, buckets, prefill,
                   layout: FrameLayout):

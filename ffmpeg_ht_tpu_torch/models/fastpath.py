@@ -13,7 +13,10 @@ the reference ``finish_v3``, and ``finish_buckets`` the reference
 function of that name, which end in ``jnp.asarray``: the names, layouts
 and bits of the returned arguments are those of the JAX functions, so
 both packages can be handed identical arrays; uint32 word streams travel
-as int32 tensors holding the same bits.
+as int32 tensors holding the same bits. The v3 program's arguments are
+written once, into one buffer (page-locked for a card), and sent in one
+copy (``Staging``); the v2 routes upload array by array; both copies go
+through ``to_torch``.
 """
 
 from __future__ import annotations
@@ -716,23 +719,17 @@ def _bytes_at(body, pos):
 
 
 @trace.timed("lane_args")
-def finish_v3_numpy(fg, frames_cols, total):
+def finish_v3_numpy(fg, frames_cols, total, alloc=None):
     """Pack per-frame ``build_v3_frame`` columns into the v3 program's
     arguments as numpy arrays (JAX dtypes: uint32 streams, int32 vectors,
     float32 fscale): one native pass from the frames' bodies to the word
-    streams. Returns (args, F)."""
+    streams. `alloc` takes {name: (shape, dtype)} of every argument once
+    the pass has found the word widths, and returns the arrays each is
+    written into (``Staging.alloc``: views of one buffer); by default new
+    arrays. Returns (args, F)."""
     from ffmpeg_ht_tpu_torch.utils import native
     F = len(frames_cols)
     N = fg.ncblks
-
-    def stack(key, dtype):
-        return np.concatenate([fc[key] for fc in frames_cols]).astype(dtype)
-
-    trace.count("direct_prep_lanes", F * N)
-    msw, melw, vlcw, ms_lim, mel_lim = native.ht_prepare_v3(
-        [fc["body"] for fc in frames_cols], stack("off", np.int64),
-        stack("lcups", np.int64), stack("pcups", np.int64),
-        stack("dev", bool))
 
     bh, bw = lane_raster_dims(fg)
     lane_span = N * bh * bw                 # one frame's lane-raster size
@@ -742,49 +739,127 @@ def finish_v3_numpy(fg, frames_cols, total):
             pf_i.append(ridx + f * lane_span)
             pf_v.append(rval)
     pdt = np.float32 if fg.geom.transform == mk.DWT97 else np.int32
-    if pf_i:
-        pf_idx = np.concatenate(pf_i).astype(np.int32)
-        pf_val = np.concatenate(pf_v).astype(pdt)
-    else:
-        pf_idx = np.zeros(0, np.int32)
-        pf_val = np.zeros(0, pdt)
     # pow2 capacity, as the JAX program's; pads index the trash slot one
     # past the frames' lane rasters
     cap = 16
-    while cap < len(pf_idx):
+    n_pf = sum(len(i) for i in pf_i)
+    while cap < n_pf:
         cap *= 2
-    pf_idx = _pad(pf_idx, cap, F * lane_span).astype(np.int32)
-    pf_val = _pad(pf_val, cap, 0).astype(pdt)
 
-    tile = lambda a, dtype: np.tile(np.asarray(a), F).astype(dtype)
-    args = dict(
-        msw=msw, melw=melw, vlcw=vlcw,
-        pLSB=stack("pLSB", np.int32), maxbp=stack("maxbp", np.int32),
-        ms_lim=ms_lim, mel_lim=mel_lim,
-        qws=stack("qws", np.int32), qhs=stack("qhs", np.int32),
-        magb=tile(fg.magb, np.int32), istep=tile(fg.istep, np.int32),
-        scale97=tile(fg.scale97, np.int32),
-        fscale=tile(fg.fscale, np.float32),
-        pf_idx=pf_idx, pf_val=pf_val)
+    vec = ((F * N,), np.int32)
+    args = {}
+
+    def words_out(shapes):
+        specs = dict(zip(("msw", "melw", "vlcw"),
+                         ((s, np.uint32) for s in shapes)))
+        specs.update(pLSB=vec, maxbp=vec, ms_lim=vec, mel_lim=vec, qws=vec,
+                     qhs=vec, magb=vec, istep=vec, scale97=vec,
+                     fscale=((F * N,), np.float32), pf_idx=((cap,), np.int32),
+                     pf_val=((cap,), pdt))
+        args.update(alloc(specs) if alloc is not None else
+                    {k: np.empty(*sd) for k, sd in specs.items()})
+        return args["msw"], args["melw"], args["vlcw"]
+
+    def stack(key, dtype):
+        return np.concatenate([fc[key] for fc in frames_cols]).astype(dtype)
+
+    trace.count("direct_prep_lanes", F * N)
+    _w, _m, _v, ms_lim, mel_lim = native.ht_prepare_v3(
+        [fc["body"] for fc in frames_cols], stack("off", np.int64),
+        stack("lcups", np.int64), stack("pcups", np.int64),
+        stack("dev", bool), out=words_out)
+    args["ms_lim"][:] = ms_lim
+    args["mel_lim"][:] = mel_lim
+    for key in ("pLSB", "maxbp", "qws", "qhs"):
+        np.concatenate([fc[key] for fc in frames_cols], out=args[key],
+                       casting="unsafe")
+    for key in ("magb", "istep", "scale97", "fscale"):
+        args[key].reshape(F, N)[:] = getattr(fg, key)
+    pf_idx, pf_val = args["pf_idx"], args["pf_val"]
+    pf_idx[:] = F * lane_span
+    pf_val[:] = 0
+    if pf_i:
+        np.concatenate(pf_i, out=pf_idx[:n_pf], casting="unsafe")
+        np.concatenate(pf_v, out=pf_val[:n_pf], casting="unsafe")
     return args, F
 
 
-@trace.timed("upload")
-def to_torch(a: np.ndarray, device) -> torch.Tensor:
-    """numpy -> torch on `device`; uint32 arrays become int32 bit views.
+_ALIGN = 256       # each staged argument's offset in the buffer
 
-    A CUDA upload is staged in page-locked memory and queued on the
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """`a` as the port sends it to torch: uint32 words as int32 bit
+    views, other arrays as they are."""
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+class Staging:
+    """One program call's arguments in one byte buffer, each at a
+    256-byte aligned offset, written once and sent to `device` in one
+    copy.
+
+    ``alloc`` (the `alloc` of ``finish_v3_numpy``) lays the buffer out as
+    ``host`` and returns numpy views of it: page-locked memory from
+    torch's host cache for a CUDA device, plain memory otherwise.
+    ``to_torch(stage.host, device)`` queues the one copy on the current
+    stream, from the page-locked tensor, so the host cache records an
+    event on it and hands the block out again only once the copy has run:
+    the buffer needs no other guard while later calls stage theirs.
+    ``views`` then gives each argument as a typed view of the copy."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.host = None
+        self.layout = {}        # name -> (start, end, shape, torch dtype)
+
+    def alloc(self, specs):
+        """{name: (shape, numpy dtype)} -> {name: numpy view} of one new
+        buffer, ``host``."""
+        pos, spans = 0, {}
+        for k, (shape, dtype) in specs.items():
+            pos = -(-pos // _ALIGN) * _ALIGN
+            end = pos + int(np.prod(shape)) * np.dtype(dtype).itemsize
+            spans[k], pos = (pos, end, tuple(shape)), end
+        self.host = torch.empty(pos, dtype=torch.uint8,
+                                pin_memory=self.device.type == "cuda")
+        buf = self.host.numpy()
+        views = {k: buf[a:e].view(specs[k][1]).reshape(s)
+                 for k, (a, e, s) in spans.items()}
+        self.layout = {k: (a, e, s, torch.from_numpy(_bits(views[k])).dtype)
+                       for k, (a, e, s) in spans.items()}
+        return views
+
+    def views(self, dev: torch.Tensor, frames: int) -> Dict[str, torch.Tensor]:
+        """The staged arguments of `frames` frames as typed views of `dev`,
+        the copy of ``host`` on the device (``to_torch``); counts
+        ``staged_frames`` and ``staged_bytes``. Drops the host buffer."""
+        trace.count("staged_frames", frames)
+        trace.count("staged_bytes", dev.numel())
+        self.host = None
+        return {k: dev[a:e].view(td).reshape(s)
+                for k, (a, e, s, td) in self.layout.items()}
+
+
+@trace.timed("upload")
+def to_torch(a, device) -> torch.Tensor:
+    """numpy -> torch on `device` (uint32 arrays as int32 bit views,
+    ``_bits``), or a host tensor, ``Staging.host``, as it is.
+
+    A CUDA upload comes from page-locked memory (an array is copied into
+    it first; a staged buffer is there already) and is queued on the
     current stream, so it does not wait for the stream's earlier work."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    t = torch.from_numpy(a)
-    if torch.device(device).type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    cuda = torch.device(device).type == "cuda"
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        t = torch.from_numpy(_bits(np.ascontiguousarray(a)))
+        t = t.pin_memory() if cuda else t
+    return t.to(device, non_blocking=cuda)
 
 
 def finish_v3(fg, frames_cols, total, device):
-    """``finish_v3_numpy`` moved to `device`: (args dict of tensors, F)."""
-    args, F = finish_v3_numpy(fg, frames_cols, total)
-    return {k: to_torch(v, device) for k, v in args.items()}, F
+    """``finish_v3_numpy`` staged and moved to `device` in one copy
+    (``Staging``): (args dict of tensors, F)."""
+    stage = Staging(device)
+    _args, F = finish_v3_numpy(fg, frames_cols, total, stage.alloc)
+    return stage.views(to_torch(stage.host, device), F), F

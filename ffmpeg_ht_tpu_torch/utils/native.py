@@ -123,7 +123,7 @@ def ht_prepare_streams(data: np.ndarray, lcup: np.ndarray,
     return out + (ms_lim, mel_lim) if want_limits else out
 
 
-def ht_prepare_v3(bodies, off, lcup, pcup, moddcup, counts=None):
+def ht_prepare_v3(bodies, off, lcup, pcup, moddcup, counts=None, out=None):
     """The stream words straight from codestream bodies, as
     ``ht_prepare_streams(..., want_limits=True)`` gives them for the byte
     matrix of these rows: (msw, melw, vlcw, ms_lim, mel_lim).
@@ -135,7 +135,11 @@ def ht_prepare_v3(bodies, off, lcup, pcup, moddcup, counts=None):
     (the v3 program's frames); with it, body k holds the next counts[k]
     rows (a BucketProgram bucket's lanes from several bodies).
     One pass finds each stream's extent, one writes the words at the width
-    ``ht_batch._trim_pow2`` would give them."""
+    ``ht_batch._trim_pow2`` would give them: into new arrays, or with
+    `out`, a callable that takes the three word arrays' shapes once the
+    first pass has found them, into the arrays it returns (writable
+    C-contiguous uint32 of exactly those shapes; every word is written,
+    the zero padding included)."""
     from ffmpeg_ht_tpu_torch.ops.ht_batch import _pow2_width
     lib = load()
     bodies = [np.ascontiguousarray(b, np.uint8) for b in bodies]
@@ -166,16 +170,23 @@ def ht_prepare_v3(bodies, off, lcup, pcup, moddcup, counts=None):
     rc = lib.ht_v3_extents(*head, ms_lim.ctypes.data, mel_lim.ctypes.data,
                            last.ctypes.data)
     if rc == 0:
-        out = [np.empty((rows, _pow2_width(int(w) + 3)), np.uint32)
-               for w in last]
-        rc = lib.ht_v3_pack(*head, *(x for a in out
+        shapes = [(rows, _pow2_width(int(w) + 3)) for w in last]
+        words = [np.empty(s, np.uint32) for s in shapes] if out is None \
+            else list(out(shapes))
+        if len(words) != 3 or not all(
+                isinstance(a, np.ndarray) and a.dtype == np.uint32
+                and a.shape == s and a.flags.c_contiguous
+                and a.flags.writeable for a, s in zip(words, shapes)):
+            raise ValueError("v3 stream prep: the outputs are not writable "
+                             f"C-contiguous uint32 arrays of shapes {shapes}")
+        rc = lib.ht_v3_pack(*head, *(x for a in words
                                      for x in (a.ctypes.data, a.shape[1])))
     if rc == -2:
         raise MemoryError("v3 stream prep: no row buffer")
     if rc != 0:
         raise ValueError("v3 stream prep: a lane's pcup lies outside "
                          "[0, lcup]")
-    return (*out, ms_lim, mel_lim)
+    return (*words, ms_lim, mel_lim)
 
 
 # ---------------------------------------------------------------------------

@@ -1281,3 +1281,84 @@ def test_v3_program_on_the_card_runs_no_plain_stage(cuda, tname, route,
     assert launched == PROGRAM_LAUNCHES[route] \
         == [progs[0].kernel_launches()[k] for k in names]
     assert got == want
+
+
+# c3's coding (BASELINE config 3: 10-bit 4:4:4, RCT, one tile, 64x64
+# codeblocks, 6 DWT levels) on a quarter of its 4096x2160 frame
+C3_LIKE_ENC = dict(depth=10, mct=True, tile_width=4096, tile_height=4096,
+                   log2_cblk_width=6, log2_cblk_height=6)
+
+
+@pytest.fixture(scope="module")
+def c3_like():
+    """Five c3-like frames of distinct 10-bit noise: (sources, streams)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card (torch.cuda.is_available() is False)")
+    from ffmpeg_ht_tpu_torch.models.encoder import encode_frame_htj2k
+
+    rng = np.random.default_rng(23)
+    srcs = [rng.integers(0, 1024, (1080, 2048, 3), dtype=np.uint16)
+            for _ in range(5)]
+    return srcs, [encode_frame_htj2k(s, **C3_LIKE_ENC) for s in srcs]
+
+
+def test_staged_upload_is_not_overwritten_by_the_next_staging(cuda,
+                                                              c3_like):
+    """Two v3 program calls staged back to back while the stream is held
+    (``torch.cuda._sleep``), each letting its page-locked buffer go before
+    its copy has run: the second staging takes another block, both
+    copies' device arguments equal their numpy arrays once the stream
+    runs, and once the copies are done the host cache hands one of the
+    two blocks out again."""
+    from ffmpeg_ht_tpu_torch.codestream.parser import parse_codestream
+    from ffmpeg_ht_tpu_torch.models import fastpath as FP
+
+    _srcs, streams = c3_like
+    hdrs = [parse_codestream(d) for d in streams[:2]]
+    fg = FP.FlatGeometry(hdrs[0])
+    cols = [FP.build_v3_frame(fg, FP.parse_frame_flat(h, fg)) for h in hdrs]
+    want = [FP.finish_v3_numpy(fg, [c], fg.geom.total)[0] for c in cols]
+
+    def stage(fc):
+        s = FP.Staging(cuda)
+        FP.finish_v3_numpy(fg, [fc], fg.geom.total, s.alloc)
+        ptr = s.host.data_ptr()
+        return s.views(FP.to_torch(s.host, cuda), 1), ptr
+
+    stage(cols[0])                      # the first block, allocated warm
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)    # ~0.5 s of the stream held
+    (a0, p0), (a1, p1) = stage(cols[0]), stage(cols[1])
+    held = torch.cuda.Event()
+    held.record()
+    assert not held.query()             # both copies were still queued
+    assert p0 != p1
+    torch.cuda.synchronize()
+    for got, w in zip((a0, a1), want):
+        assert list(got) == list(w)
+        for k, v in w.items():
+            g = got[k].cpu().numpy().view(v.dtype)
+            assert g.shape == v.shape and np.array_equal(g, v), k
+    assert not torch.equal(a0["msw"], a1["msw"])  # an overwrite shows
+    _a2, p2 = stage(cols[1])
+    assert p2 in (p0, p1)
+
+
+def test_decode_stream_of_c3_like_frames_equals_the_sources(cuda, c3_like):
+    """``decode_stream`` at depth 3 over five c3-like frames, each call's
+    arguments staged in page-locked memory that the next calls' staging
+    may reuse once its copy is done: every frame equals its source
+    (rgb48le, 10 bits shifted left by 6), through the v3 program, and each
+    frame was staged once."""
+    from ffmpeg_ht_tpu_torch.models.decoder import Decoder
+    from ffmpeg_ht_tpu_torch.utils import trace
+
+    srcs, streams = c3_like
+    dec = Decoder(device=cuda)
+    f0 = trace.counters.get("staged_frames", 0)
+    frames = list(dec.decode_stream(streams + streams[:2], depth=3))
+    assert dec.v3_frames == 7 and not dec.v2_frames and not dec.host_frames
+    assert trace.counters["staged_frames"] - f0 == 7
+    for frame, src in zip(frames, srcs + srcs[:2]):
+        assert frame.fmt.name == "rgb48le"
+        assert frame.tobytes() == (src << 6).tobytes()

@@ -172,6 +172,52 @@ def test_finish_v3_matches_jax(lossy_streams):
             assert t.dtype == w.dtype and np.array_equal(t, w), k
 
 
+@pytest.mark.parametrize("case", ["rct53", "ict97-float", "batch3"])
+def test_staged_arguments_equal_the_numpy_arrays(case, lossy_streams):
+    """``Staging`` on the CPU (the v3 route's one buffer and one copy):
+    each argument equals ``finish_v3_numpy``'s array key by key (dtype,
+    shape, bytes; uint32 words as int32 bit views), for a 5/3 RCT stream,
+    a float 9/7 ICT stream and a batch of three; every argument is a
+    contiguous view of one device buffer at a 256-byte aligned offset,
+    the host buffer is let go, and the copy counts its frames and
+    bytes."""
+    if case == "batch3":
+        img, o = IMAGES["rgb10_rct"]
+        streams, bitexact = [encode_frame_htj2k(np.roll(img, k, 1), **ENC,
+                                                **o) for k in (0, 5, 9)], True
+    else:
+        streams, bitexact = ([STREAMS["rgb10_rct"]], True) \
+            if case == "rct53" else ([lossy_streams[1][0]], False)
+    hdrs = [port_parse(d, bitexact=bitexact) for d in streams]
+    fg = port_fp.FlatGeometry(hdrs[0])
+    fcs = [port_fp.build_v3_frame(fg, port_fp.parse_frame_flat(h, fg))
+           for h in hdrs]
+    want, F = port_fp.finish_v3_numpy(fg, fcs, fg.geom.total)
+    stage = port_fp.Staging("cpu")
+    host, F2 = port_fp.finish_v3_numpy(fg, fcs, fg.geom.total, stage.alloc)
+    nbytes = stage.host.numel()
+    f0 = trace.counters.get("staged_frames", 0)
+    b0 = trace.counters.get("staged_bytes", 0)
+    got = stage.views(port_fp.to_torch(stage.host, "cpu"), F2)
+    assert F == F2 == len(streams) and stage.host is None
+    assert list(got) == list(host) == list(want)
+    if case == "ict97-float":
+        assert want["fscale"].any()
+    base = got["msw"].untyped_storage().data_ptr()
+    for k, w in want.items():
+        assert host[k].dtype == w.dtype and np.array_equal(host[k], w), k
+        g = got[k]
+        assert g.is_contiguous() and g.untyped_storage().data_ptr() == base
+        assert (g.data_ptr() - base) % 256 == 0, k
+        assert g.dtype == (torch.int32 if w.dtype == np.uint32
+                           else torch.from_numpy(w).dtype), k
+        g = g.numpy().view(w.dtype)
+        assert g.shape == w.shape and g.tobytes() == w.tobytes(), k
+    assert got["msw"].untyped_storage().nbytes() == nbytes
+    assert trace.counters["staged_frames"] - f0 == F
+    assert trace.counters["staged_bytes"] - b0 == nbytes
+
+
 def test_prefill_scatter_matches_jax(jax_dec):
     """Host-decoded lanes arrive as (pf_idx, pf_val) in lane-raster
     coordinates; pads point one past the frame's rasters (JAX drops them,

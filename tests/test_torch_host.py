@@ -455,6 +455,59 @@ def test_direct_pass_reads_runs_of_rows_from_each_body(kind):
         native.ht_prepare_v3(bodies, off, lcup, pcup, mod, counts=[7, 12])
 
 
+def _out_cases():
+    """`out` callables: (name, the callable, True where it must raise)."""
+    def fill(shapes):           # every word a pattern the pack overwrites
+        return [np.full(s, 0xA5A5A5A5, np.uint32) for s in shapes]
+
+    def narrow(shapes):
+        return [np.zeros((r, w - 1), np.uint32) for r, w in shapes]
+
+    def short(shapes):
+        return [np.zeros((r - 1, w), np.uint32) for r, w in shapes]
+
+    def signed(shapes):
+        return [np.zeros(s, np.int32) for s in shapes]
+
+    def strided(shapes):
+        return [np.zeros((r, 2 * w), np.uint32)[:, ::2] for r, w in shapes]
+
+    def two(shapes):
+        return fill(shapes)[:2]
+    return [("fill", fill, False), ("narrow", narrow, True),
+            ("short", short, True), ("signed", signed, True),
+            ("strided", strided, True), ("two", two, True)]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _out_cases()])
+@pytest.mark.parametrize("kind", PACK_KINDS)
+def test_direct_v3_pass_packs_into_the_callers_arrays(kind, case):
+    """With ``out``, ht_prepare_v3 hands the callable the three word
+    arrays' shapes and packs into what it returns: arrays filled with a
+    pattern first end equal to the allocating call's, the zero padding
+    past each stream included; an output too small (a word or a row
+    short), of another dtype, not C-contiguous or missing raises."""
+    (_name, out, raises), = [c for c in _out_cases() if c[0] == case]
+    data, lcup, pcup = _rows(kind, n=24)
+    body = np.concatenate([data[i, :lcup[i]] for i in range(24)])
+    off = np.concatenate([[0], np.cumsum(lcup[:-1])]).astype(np.int64)
+    mod = np.arange(24) % 2 == 0
+    want = native.ht_prepare_v3([body], off, lcup, pcup, mod)
+    seen = []
+    call = lambda: native.ht_prepare_v3(
+        [body], off, lcup, pcup, mod,
+        out=lambda shapes: seen.append(shapes) or out(shapes))
+    if raises:
+        with pytest.raises(ValueError):
+            call()
+        return
+    got = call()
+    assert seen == [[w.shape for w in want[:3]]]
+    assert any(not w[:, -1].any() for w in want[:3])   # padding words
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
 def test_direct_v3_pass_rejects_bad_rows():
     body = np.zeros(8, np.uint8)
     one = np.ones(1, np.int64)

@@ -228,6 +228,76 @@ def test_direct_prep_counts_the_v3_lanes_and_no_v2_lane(frames, tracer,
     assert trace.counters["direct_prep_lanes"] == before
 
 
+def _staged_size(args):
+    """Bytes of one staging buffer of `args`: each array at the next
+    256-byte aligned offset, in order."""
+    pos = 0
+    for a in args.values():
+        pos = -(-pos // 256) * 256 + a.nbytes
+    return pos
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_staged_frames_count_the_v3_calls_and_no_v2_call(frames, tracer,
+                                                         entry):
+    """Each v3 program call stages its arguments in one buffer and one
+    copy: ``staged_frames`` grows by the frames dispatched and
+    ``staged_bytes`` by that buffer's size (the numpy arguments, each at
+    a 256-byte aligned offset); a v2 decode counts neither and uploads
+    its arrays through ``to_torch`` (its ``upload`` spans)."""
+    imgs, streams = frames
+    dec = Decoder(device="cpu")
+    hdrs = [parse_codestream(d, bitexact=True) for d in streams]
+    fg = FP.FlatGeometry(hdrs[0])
+    fcs = [FP.build_v3_frame(fg, FP.parse_frame_flat(h, fg)) for h in hdrs]
+    calls = [fcs] if entry == "decode_batch" else [[fc] for fc in fcs]
+    want = sum(_staged_size(FP.finish_v3_numpy(fg, c, fg.geom.total)[0])
+               for c in calls)
+    f0 = trace.counters.get("staged_frames", 0)
+    b0 = trace.counters.get("staged_bytes", 0)
+    tracer.drain()
+    got = _decode(dec, entry, streams)
+    assert [f.planes[0].tolist() for f in got] == [x.tolist() for x in imgs]
+    assert dec.v3_frames == len(streams) and not dec.v2_frames
+    assert trace.counters["staged_frames"] - f0 == len(streams)
+    assert trace.counters["staged_bytes"] - b0 == want
+    assert sum(s[0] == "upload" for s in tracer.drain()) == len(calls)
+    v2 = encoder.encode_frame_htj2k(imgs[0], refinement=True, ht_layers=2,
+                                    **ENC)
+    f0, b0 = trace.counters["staged_frames"], trace.counters["staged_bytes"]
+    frame = dec.decode(v2)
+    assert dec.v2_frames == 1 and np.array_equal(frame.planes[0], imgs[0])
+    assert (trace.counters["staged_frames"],
+            trace.counters["staged_bytes"]) == (f0, b0)
+    assert sum(s[0] == "upload" for s in tracer.drain()) > 1
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_host_lane_span_covers_the_staged_upload(frames, tracer, entry):
+    """The benchmark's ``host_lane`` span wraps ``decoder.to_torch``, and
+    each v3 program call's one staged copy goes through that name: every
+    ``upload`` span of the port lies inside a ``host_lane`` record, and
+    the span counts a frame's lane columns, each call's stream prep and
+    each call's copy."""
+    imgs, streams = frames
+    dec = Decoder(device="cpu")
+    _decode(dec, entry, streams)               # warm: programs built
+    calls = 1 if entry == "decode_batch" else len(streams)
+    spans = tracing.Spans(spec.span_specs(["host_lane"]))
+    try:
+        tracer.drain()
+        got = _decode(dec, entry, streams)
+        ups = [s for s in tracer.drain() if s[0] == "upload"]
+    finally:
+        spans.remove()
+    assert [f.planes[0].tolist() for f in got] == [x.tolist() for x in imgs]
+    lane = [(s, e) for lb, s, e in spans.records if lb == "host_lane"]
+    assert len(lane) == len(streams) + 2 * calls
+    assert len(ups) == calls
+    for u in ups:
+        assert any(s <= u[1] / 1e9 and u[2] / 1e9 <= e for s, e in lane)
+
+
 @pytest.mark.parametrize("v3", ["1", "0"])
 def test_float97_frames_count_float_frames_on_either_program(monkeypatch,
                                                              v3):
@@ -310,7 +380,8 @@ class FakeTracer:
 
     def __init__(self, dispatch=True):
         self.counters = {"builds": 5, "oracle_lanes": 2, "float97_frames": 4,
-                         "device_layout_frames": 4}
+                         "device_layout_frames": 4, "staged_frames": 4,
+                         "staged_bytes": 1000}
         self._launches, self._on, self._recorded = 100, False, False
         self.spans = []
         for call, d0, f0 in ((1, 0, 30), (2, 10, 40)):
@@ -333,7 +404,8 @@ class FakeTracer:
         """The window: its spans, and what it adds to the counters."""
         self._recorded = True
         self.counters = {"builds": 6, "oracle_lanes": 5, "float97_frames": 6,
-                         "device_layout_frames": 6}
+                         "device_layout_frames": 6, "staged_frames": 6,
+                         "staged_bytes": 3_001_000}
         self._launches += 20
 
     def drain(self):
@@ -357,7 +429,8 @@ READERS = {"parse_ms": 1.0, "lane_cols_ms": 4.0, "lane_args_ms": 1.0,
            "write_ms": 8.0, "output_held_ms": 20.0,
            "launches_per_frame": 10.0, "oracle_lanes_per_frame": 1.5,
            "builds": 1, "float97_frames_per_frame": 1.0,
-           "device_layout_frames_per_frame": 1.0}
+           "device_layout_frames_per_frame": 1.0,
+           "staged_frames_per_frame": 1.0, "upload_mb_per_frame": 1.5}
 
 
 def _traced(monkeypatch, fake):
@@ -404,6 +477,19 @@ def test_device_layout_reader_is_none_where_the_program_has_no_counter(
     assert spec.module("layers",
                        "device_layout_frames_per_frame").read(t) is None
     assert spec.module("layers", "float97_frames_per_frame").read(t) == 1.0
+
+
+@pytest.mark.parametrize("counter,name", [
+    ("staged_frames", "staged_frames_per_frame"),
+    ("staged_bytes", "upload_mb_per_frame")])
+def test_staged_readers_are_none_where_the_program_has_no_counter(
+        monkeypatch, counter, name):
+    fake = FakeTracer()
+    t = _traced(monkeypatch, fake)
+    del fake.counters[counter]          # a program that stages nothing
+    assert spec.module("layers", name).read(t) is None
+    assert spec.module("layers", "device_layout_frames_per_frame").read(
+        t) == 1.0
 
 
 def _lossy_window(ops, bw=3.35e12):
